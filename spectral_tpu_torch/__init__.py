@@ -1,0 +1,71 @@
+"""spectral_tpu_torch — the PyTorch/CUDA port of the spectral path tracer.
+
+A second package beside the JAX one (``spectral_tpu``), which stays the
+reference: hero-wavelength spectral path tracing of the three reference
+triangle scenes, rendered by a hand-written CUDA megakernel for Hopper
+(sm_90a) and written out as BMP by the same CLI. Every CUDA kernel has a
+plain PyTorch twin that runs when the tensors lie on the CPU.
+
+Public API:
+
+    from spectral_tpu_torch import (
+        build_scene, scene_camera, render_chunk, RenderManager,
+        RenderParams, parse_args,
+    )
+
+Entry points take ``device`` and default to ``"cuda"``; without a GPU they
+raise unless the caller passes ``device="cpu"``.
+"""
+
+import torch as _torch
+
+# Rendering is float32 throughout. TF32 keeps ~3 decimal digits: in the JAX
+# package, reduced-precision matmuls dropped grazing hits and darkened
+# renders (spectral_tpu/__init__.py:23-27), so neither matmuls nor cuDNN may
+# use it here.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .config import RenderParams, parse_args  # noqa: E402
+from .models.camera import Camera, camera_vector, make_camera  # noqa: E402
+from .models.scenes import (  # noqa: E402
+    CORNELL,
+    PRISM,
+    SCENE_NAMES,
+    TRIS,
+    Scene,
+    build_scene,
+    expected_sizes,
+    scene_camera,
+)
+from .ops.cuda.render_kernel import render_chunk  # noqa: E402
+from .render.wavefront import xyz_to_image  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RenderParams",
+    "parse_args",
+    "Camera",
+    "make_camera",
+    "camera_vector",
+    "CORNELL",
+    "PRISM",
+    "TRIS",
+    "SCENE_NAMES",
+    "Scene",
+    "build_scene",
+    "expected_sizes",
+    "scene_camera",
+    "render_chunk",
+    "xyz_to_image",
+    "__version__",
+]
+
+
+def __getattr__(name):
+    if name == "RenderManager":
+        from .runtime.render_manager import RenderManager
+
+        return RenderManager
+    raise AttributeError(name)
