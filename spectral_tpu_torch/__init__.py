@@ -13,6 +13,12 @@ Public API:
         RenderParams, parse_args,
     )
 
+Differentiable rendering and inverse rendering on the fused kernels (the
+residual megakernel and its replay):
+
+    from spectral_tpu_torch.diff import render_chunk_diff_fused, render_rays_diff_fused
+    from spectral_tpu_torch.parallel import trainable_params, train_step_fused
+
 Entry points take ``device`` and default to ``"cuda"``; without a GPU they
 raise unless the caller passes ``device="cpu"``.
 """

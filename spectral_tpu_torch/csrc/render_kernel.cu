@@ -41,6 +41,15 @@
 // terminates (its state is frozen from then on in the JAX kernel too, and
 // its draws are indexed, not consumed, so nothing else moves).
 //
+// The residual form (render_residuals_launch) replaces the same TPU kernel
+// with save_residuals=True, launched by render_rays_pallas_residuals :2421
+// (writes at :2029-2030, :2249-2258, :2286-2289). It is one template
+// instantiation of the same source: kSaveResiduals adds the stores of the
+// hero wavelength, n_valid, the final power and the per-bounce material
+// residual, and nothing else. Its bound adds the 4 * (2 + 7 + bounces)
+// residual bytes written per sample-ray to the forward's operations; the
+// stores are per thread at [s][.][i], so a warp writes 128 contiguous bytes.
+//
 // Numerics: compiled with -fmad=false and without fast math. Every
 // operation rounds once, in the JAX kernel's order, and a product fuses into
 // a sum only through an explicit fmaf, placed where XLA's CPU backend
@@ -53,26 +62,19 @@
 #include <stdint.h>
 
 #include "hit.cuh"
+#include "spectrum.cuh"
 
 namespace {
+
+using namespace spt;
 
 constexpr int kBlock = 128;
 constexpr int kTriStride = 17;   // TRI_PACK_WIDTH
 constexpr int kMatStride = 16;   // MAT_PACK_WIDTH
-constexpr int kSamples = 95;     // N_CIE_SAMPLES
-constexpr int kW = 7;            // N_RAY_WAVELENGTHS, hero at 0
-constexpr float kLambdaMin = 360.0f;
-constexpr float kLambdaMax = 830.0f;
-constexpr float kSpan = 470.0f;
 constexpr float kEpsilon = 1e-4f;
-// python-double constants of the JAX kernel, rounded once to float
+// python-double constant of the JAX kernel, rounded once to float
 constexpr float kTwoPi = (float)(2.0 * 3.14159265358979);
-constexpr float kCellScale = (float)(94.0 / 470.0);
-constexpr float kDelta = (float)(470.0 / 7.0);
 constexpr float kInv24 = 1.0f / 16777216.0f;
-
-// tables rows
-constexpr int kCieX = 0, kCieY = 1, kCieZ = 2, kD65 = 3, kBg = 4;
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   x ^= x >> 16;
@@ -83,10 +85,19 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ float lut(const float* row, int cell, float frac) {
-  return fmaf(1.0f - frac, row[cell], frac * row[cell + 1]);
-}
+// Path residuals of the fused backward (ops/cuda/grad_kernel.py), in the JAX
+// kernel's sample-major, ray-minor layout: hero[s][i], n_valid[s][i] (after
+// the bounce-limit rule), power[s][w][i] (final, frozen at termination),
+// matres[s][b][i] = mat + 1 for a hit, -1 for a background miss, 0 for the
+// bounces after the path ended.
+struct Residuals {
+  float* hero;
+  float* n_valid;
+  float* power;
+  int* matres;
+};
 
+template <bool kSaveResiduals>
 __global__ void __launch_bounds__(kBlock) render_kernel(
     const float* __restrict__ cam, uint32_t seed,
     const float* __restrict__ tri_pack, int n_tris,
@@ -94,7 +105,7 @@ __global__ void __launch_bounds__(kBlock) render_kernel(
     const float* __restrict__ tables, const float* __restrict__ px,
     const float* __restrict__ py, int n, int image_width, int spp, int bounces,
     const float* __restrict__ rand, float* __restrict__ xyz,
-    int* __restrict__ steps) {
+    int* __restrict__ steps, Residuals res) {
   extern __shared__ float smem[];
   float* s_tri = smem;
   float* s_mat = s_tri + n_tris * kTriStride;
@@ -149,15 +160,13 @@ __global__ void __launch_bounds__(kBlock) render_kernel(
 
     // hero wavelengths (spectrum.cu:31-48) and their table cells
     const float hero = fmaf(kSpan, rnd(2), kLambdaMin);
+    const size_t si = (size_t)s * n + i;
+    if constexpr (kSaveResiduals) res.hero[si] = hero;
     float lam[kW], frac[kW], d65w[kW], bgw[kW];
     int cell[kW];
 #pragma unroll
     for (int w = 0; w < kW; ++w) {
-      const float lw = hero + (float)((double)w * (470.0 / 7.0));
-      lam[w] = lw > kLambdaMax ? lw - kSpan : lw;
-      const float xg = (lam[w] - kLambdaMin) * kCellScale;
-      cell[w] = min(max((int)xg, 0), kSamples - 2);
-      frac[w] = xg - (float)cell[w];
+      comb_cell(hero, w, lam[w], cell[w], frac[w]);
       d65w[w] = lut(s_tab + kD65 * kSamples, cell[w], frac[w]);
       bgw[w] = lut(s_tab + kBg * kSamples, cell[w], frac[w]);
     }
@@ -168,7 +177,8 @@ __global__ void __launch_bounds__(kBlock) render_kernel(
     bool alive = true;
     float n_valid = (float)kW;
 
-    for (int b = 0; b < bounces && alive; ++b) {
+    int b = 0;
+    for (; b < bounces && alive; ++b) {
       ++live_steps;
       const NearestHit h =
           nearest_hit<kTriStride>(s_tri, n_tris, ox, oy, oz, dx, dy, dz);
@@ -189,6 +199,8 @@ __global__ void __launch_bounds__(kBlock) render_kernel(
         nbz = h.front ? tp[2] : -tp[2];
         m = (int)tp[16];
       }
+      if constexpr (kSaveResiduals)
+        res.matres[((size_t)s * bounces + b) * n + i] = h.hit ? m + 1 : -1;
       const float* mr = s_mat + m * kMatStride;
       const float c0 = mr[0], c1 = mr[1], c2 = mr[2];
       const float is_lamb = mr[3], is_metal = mr[4], is_diel = mr[5],
@@ -291,6 +303,15 @@ __global__ void __launch_bounds__(kBlock) render_kernel(
     // bounce-limit exhaustion contributes nothing (rendering.cu:38-39)
     if (alive) n_valid = 0.0f;
 
+    if constexpr (kSaveResiduals) {
+      // the JAX kernel keeps an ended path frozen and records "none" for
+      // each later bounce; the buffer is not zeroed beforehand
+      for (; b < bounces; ++b) res.matres[((size_t)s * bounces + b) * n + i] = 0;
+      res.n_valid[si] = n_valid;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) res.power[((size_t)s * kW + w) * n + i] = power[w];
+    }
+
     // XYZ integration (dev_spectrum_to_XYZ, color.cu:88-104)
     float sx_ = 0.0f, sy_ = 0.0f, sz_ = 0.0f;
 #pragma unroll
@@ -311,6 +332,23 @@ __global__ void __launch_bounds__(kBlock) render_kernel(
   if (steps) steps[i] = live_steps;
 }
 
+template <bool kSaveResiduals>
+int launch(const float* cam, uint32_t seed, const float* tri_pack, int n_tris,
+           const float* mat_pack, int n_mats, const float* tables,
+           const float* px, const float* py, int n, int image_width, int spp,
+           int bounces, const float* rand, float* xyz, int* steps,
+           Residuals res, void* stream) {
+  if (n <= 0) return 0;
+  const size_t smem = sizeof(float) * ((size_t)n_tris * kTriStride +
+                                       (size_t)n_mats * kMatStride +
+                                       5 * kSamples);
+  const int grid = (n + kBlock - 1) / kBlock;
+  render_kernel<kSaveResiduals><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      cam, seed, tri_pack, n_tris, mat_pack, n_mats, tables, px, py, n,
+      image_width, spp, bounces, rand, xyz, steps, res);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cam [20], tri_pack [n_tris, 17], mat_pack [n_mats, 16], tables [5, 95],
@@ -324,13 +362,20 @@ extern "C" int render_launch(const float* cam, uint32_t seed,
                              const float* py, int n, int image_width, int spp,
                              int bounces, const float* rand, float* xyz,
                              int* steps, void* stream) {
-  if (n <= 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)n_tris * kTriStride +
-                                       (size_t)n_mats * kMatStride +
-                                       5 * kSamples);
-  const int grid = (n + kBlock - 1) / kBlock;
-  render_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      cam, seed, tri_pack, n_tris, mat_pack, n_mats, tables, px, py, n,
-      image_width, spp, bounces, rand, xyz, steps);
-  return (int)cudaGetLastError();
+  return launch<false>(cam, seed, tri_pack, n_tris, mat_pack, n_mats, tables,
+                       px, py, n, image_width, spp, bounces, rand, xyz, steps,
+                       Residuals{}, stream);
+}
+
+// render_launch's arguments plus the residual outputs: hero, n_valid
+// [spp, n] f32, power [spp, 7, n] f32, matres [spp, bounces, n] int32.
+extern "C" int render_residuals_launch(
+    const float* cam, uint32_t seed, const float* tri_pack, int n_tris,
+    const float* mat_pack, int n_mats, const float* tables, const float* px,
+    const float* py, int n, int image_width, int spp, int bounces,
+    const float* rand, float* xyz, int* steps, float* hero, float* n_valid,
+    float* power, int* matres, void* stream) {
+  return launch<true>(cam, seed, tri_pack, n_tris, mat_pack, n_mats, tables,
+                      px, py, n, image_width, spp, bounces, rand, xyz, steps,
+                      Residuals{hero, n_valid, power, matres}, stream);
 }

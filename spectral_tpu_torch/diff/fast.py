@@ -1,0 +1,226 @@
+"""Differentiable fused rendering: residual megakernel forward, replay
+backward.
+
+Port of the fused part of spectral_tpu/diff/fast.py. Both passes are
+kernels: the forward is the render megakernel in its residual form
+(ops/cuda/render_kernel.py::render_rays_residuals), which records per
+sample the hero wavelength, n_valid, the final power and the material of
+every bounce; the backward replays those residuals against the XYZ
+cotangent without tracing a ray again (ops/cuda/grad_kernel.py).
+
+Differentiable leaves: the sigmoid-spectrum coefficients and emission power
+of every material, the background SPD knots, and, with ``reparam_glass``,
+the Sellmeier B/C of that glass through the hero-wavelength
+reparameterization (diff/spectral_reparam.py). Fuzz, geometry and camera
+get no gradient on this path (zero almost everywhere for this estimator).
+
+Each fused entry is a ``torch.autograd.Function`` whose tensor inputs are
+``coeffs``, ``emission_power``, ``sellmeier_b``, ``sellmeier_c`` and
+``background_spd``; the public wrappers keep the JAX signatures and take the
+dataclasses apart. Without ``rand`` the draws are the kernel's hash of
+(key_seed, pixel, sample, draw); ``rand`` [spp, n_uniforms(B), N] injects
+uniform planes (the tests hand over the JAX package's), and ``rand_seed``
+>= 0 makes such planes from a torch generator.
+
+Not here yet: ``render_chunk_diff``, whose backward is the XLA wavefront
+estimator (ROADMAP A4), ``diff/geometry.py`` (A10), and scenes above
+DENSE_CUTOFF triangles, whose residual forward is the BVH sweep or the
+sorted scheduler (B5/B6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models.camera import camera_vector
+from ..ops.cuda.grad_kernel import render_grads
+from ..ops.cuda.render_kernel import DENSE_CUTOFF, n_uniforms, pack_scene, render_rays_residuals
+from .spectral_reparam import reparam_hero
+
+
+def _residual_forward(cam_vec, key_seed, tri, mat, tab, px, py, spp, bounces, image_width, rand):
+    """(xyz, hero, n_valid, power, matres) of the dense residual megakernel
+    (fast.py:46-93, its dense branch)."""
+    if tri.shape[0] > DENSE_CUTOFF:
+        raise NotImplementedError(
+            f"{tri.shape[0]} triangles: the residual forward above {DENSE_CUTOFF} "
+            "is the BVH sweep or the sorted scheduler, not ported yet (ROADMAP B5/B6)"
+        )
+    return render_rays_residuals(
+        cam_vec, int(key_seed), tri, mat, tab, px, py, spp, bounces, image_width, rand
+    )
+
+
+def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=None):
+    """xyz [N, 3] and the residuals (mat, tab, hero, n_valid, power, matres)
+    the backward replays."""
+    tri, mat, tab = pack_scene(dataclasses.replace(scene, materials=materials))
+    xyz, hero, n_valid, power, matres = _residual_forward(
+        camera_vector(cam).to(tri.device), key_seed, tri, mat, tab, px, py, spp, bounces,
+        cam.image_width, rand,
+    )
+    return xyz, (mat, tab, hero, n_valid, power, matres)
+
+
+def _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand):
+    """Row-major pixel coordinates (px, py) [N] of a chunk on the scene's
+    device, and its planes: ``rand``, else made from ``rand_seed`` >= 0,
+    else None (hash draws)."""
+    dev = scene.normal.device
+    ys, xs = torch.meshgrid(
+        torch.arange(y0, y0 + height, device=dev),
+        torch.arange(x0, x0 + width, device=dev),
+        indexing="ij",
+    )
+    if rand is None and rand_seed >= 0:
+        gen = torch.Generator(device=dev).manual_seed(rand_seed)
+        rand = torch.rand((spp, n_uniforms(bounces), width * height), generator=gen, device=dev)
+    return xs.reshape(-1).to(torch.float32), ys.reshape(-1).to(torch.float32), rand
+
+
+def _fused_fwd_impl(
+    materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces,
+    rand_seed=-1, rand=None,
+):
+    """Accumulated XYZ [height, width, 3] of the chunk and its residuals, in
+    row-major pixel order (dense scenes are one leaf: no swizzle, and the
+    port pads nothing)."""
+    px, py, rand = _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand)
+    xyz, residuals = _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand)
+    return xyz.reshape(height, width, 3), residuals
+
+
+@dataclasses.dataclass(frozen=True)
+class _Spec:
+    """The non-tensor arguments of one fused render."""
+
+    materials: object
+    scene: object
+    cam: object
+    px: torch.Tensor
+    py: torch.Tensor
+    key_seed: int
+    spp: int
+    bounces: int
+    rand: torch.Tensor | None
+    reparam_glass: int | None
+
+
+class _FusedRays(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, emission_power, sellmeier_b, sellmeier_c, background_spd, spec):
+        mats = dataclasses.replace(
+            spec.materials, coeffs=coeffs, emission_power=emission_power,
+            sellmeier_b=sellmeier_b, sellmeier_c=sellmeier_c,
+        )
+        scene = dataclasses.replace(spec.scene, background_spd=background_spd)
+        xyz, residuals = _rays_fwd_impl(
+            mats, scene, spec.cam, spec.px, spec.py, spec.key_seed, spec.spp, spec.bounces, spec.rand
+        )
+        ctx.spec = spec
+        ctx.save_for_backward(sellmeier_b, sellmeier_c, *residuals)
+        return xyz
+
+    @staticmethod
+    def backward(ctx, g):
+        spec = ctx.spec
+        sell_b_in, sell_c_in, mat, tab, hero, n_valid, power, matres = ctx.saved_tensors
+        glass = spec.reparam_glass
+        grads = render_grads(
+            mat, tab, g.to(torch.float32).contiguous(), hero, n_valid, power, matres,
+            spec.spp, spec.bounces, want_bg_grads=True, want_sellmeier=glass is not None,
+        )
+        d_coeffs, d_power, d_bg = grads[:3]
+        d_b = d_c = None
+        if glass is not None:
+            mats = dataclasses.replace(spec.materials, sellmeier_b=sell_b_in, sellmeier_c=sell_c_in)
+            gb, gc = _sellmeier_grads_from_replay(mats, glass, hero, grads[3], grads[4])
+            d_b = torch.zeros_like(sell_b_in)
+            d_c = torch.zeros_like(sell_c_in)
+            d_b[glass] = gb
+            d_c[glass] = gc
+        return d_coeffs, d_power, d_b, d_c, d_bg, None
+
+
+def render_rays_diff_fused(
+    materials, scene, cam, px, py, key_seed, spp, bounces, reparam_glass=None, rand=None,
+):
+    """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N];
+    differentiable w.r.t. the material coefficients and emission powers,
+    ``scene.background_spd`` and, with ``reparam_glass`` (a material row of
+    a dispersive dielectric), that glass's Sellmeier B/C. Any N: nothing
+    is padded."""
+    spec = _Spec(materials, scene, cam, px, py, int(key_seed), spp, bounces, rand, reparam_glass)
+    return _FusedRays.apply(
+        materials.coeffs, materials.emission_power, materials.sellmeier_b,
+        materials.sellmeier_c, scene.background_spd, spec,
+    )
+
+
+def render_chunk_diff_fused(
+    materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces,
+    rand_seed=-1, reparam_glass=None, rand=None,
+):
+    """Accumulated XYZ [height, width, 3] of a chunk through the fused
+    kernels, in one launch of each; the backward replays the stored
+    residuals and never traces a ray again."""
+    px, py, rand = _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand)
+    xyz = render_rays_diff_fused(materials, scene, cam, px, py, key_seed, spp, bounces, reparam_glass, rand)
+    return xyz.reshape(height, width, 3)
+
+
+def _sellmeier_grads_from_replay(materials, glass, hero, sell_a, sell_b):
+    """Fold the replay's per-(sample, ray) reparam scalars into Sellmeier
+    B/C gradients of row ``glass``: d loss / d(b, c) = sum A dw/d(b, c) +
+    B dshift/d(b, c), with (shift, w) reparam_hero's hero shift and Jacobian
+    weight. Exactly the gradient of sum(A * w + B * shift), second-order AD
+    through the Sellmeier map."""
+    h = hero.reshape(-1).detach()
+    a_flat = sell_a.reshape(-1)
+    b_flat = sell_b.reshape(-1)
+
+    def scalar_fn(b, c):
+        hr, wgt = reparam_hero(h, b, c)
+        return torch.sum(a_flat * wgt + b_flat * (hr - h))
+
+    b0 = materials.sellmeier_b[glass].detach()
+    c0 = materials.sellmeier_c[glass].detach()
+    return torch.func.grad(scalar_fn, argnums=(0, 1))(b0, c0)
+
+
+def _mix_seed(seed: int, k: int) -> int:
+    """Distinct 31-bit seed per (seed, chunk): a splitmix-style host hash."""
+    x = (seed * 0x9E3779B9 + k * 0x85EBCA6B + 0x27D4EB2F) & 0xFFFFFFFF
+    x = (x ^ (x >> 15)) * 0x2C1B3C6D & 0xFFFFFFFF
+    x = (x ^ (x >> 12)) * 0x297A2D39 & 0xFFFFFFFF
+    return (x ^ (x >> 15)) & 0x7FFFFFFF
+
+
+def render_chunk_diff_fused_accum(
+    materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces,
+    rand_seed=-1, spp_chunk=None, reparam_glass=None,
+):
+    """``render_chunk_diff_fused`` with the sample axis cut into chunks of
+    ``spp_chunk`` samples, each with its own seed (``_mix_seed``): the same
+    Monte Carlo estimator at the same total spp, its gradient the sum of the
+    chunks'. ``spp_chunk=None`` is one launch: the residual buffers live in
+    device memory and have no cap."""
+    if spp_chunk is None or spp_chunk >= spp:
+        return render_chunk_diff_fused(
+            materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces,
+            rand_seed, reparam_glass,
+        )
+    out = None
+    done, k = 0, 0
+    while done < spp:
+        c = min(spp_chunk, spp - done)
+        part = render_chunk_diff_fused(
+            materials, scene, cam, _mix_seed(key_seed, k), x0, y0, width, height, c, bounces,
+            -1 if rand_seed < 0 else _mix_seed(rand_seed, k), reparam_glass,
+        )
+        out = part if out is None else out + part
+        done += c
+        k += 1
+    return out

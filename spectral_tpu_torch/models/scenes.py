@@ -9,7 +9,8 @@ The build runs on the host (numpy geometry, float32 torch for the material
 spectra) and the finished arrays move to the device in one step, so a scene
 is the same on every device. ``scene_from_numpy`` is that step on its own:
 given the JAX package's Scene arrays under the same names, it carries them
-into the port unchanged.
+into the port unchanged; ``params_from_numpy`` does the same for the
+trainable material leaves.
 """
 
 from __future__ import annotations
@@ -87,6 +88,14 @@ def scene_from_numpy(d: dict, device: torch.device | str = "cuda") -> Scene:
         materials=mats,
         background_spd=_tensor(d["background_spd"], device),
     )
+
+
+def params_from_numpy(d: dict, device: torch.device | str = "cuda") -> dict:
+    """The trainable-leaf dict (parallel/render.py::trainable_params' keys)
+    from numpy arrays, e.g. the JAX package's leaves, as float32 tensors on
+    ``device``."""
+    device = resolve_device(device)
+    return {k: _tensor(v, device) for k, v in d.items()}
 
 
 def _cornell_walls(soup: TriSoup, wall_mats: tuple[int, int, int, int, int], light_mat: int):

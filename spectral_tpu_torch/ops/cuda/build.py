@@ -16,7 +16,9 @@ must take the same discrete decisions as their plain PyTorch versions (see
 csrc/hit.cuh), which round every operation once.
 
 A missing nvcc or a failed build raises; nothing falls back to the plain
-versions. Each ``Kernel`` counts its launches in ``launches``.
+versions. Each ``Kernel`` is one C entry point with its own launch count in
+``launches``; entry points of one source share its library, which is built
+and loaded once.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._symbols = {}
 
     def library(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -90,15 +92,23 @@ class Kernel:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on {self.source.name}:\n{out}")
         os.replace(tmp, self.library())
 
-    def function(self):
-        """The loaded C entry point, building the library first if needed."""
-        if self._fn is None:
+    def symbol(self, entry: str, argtypes: list):
+        """A C function of this kernel's library returning int, building
+        and loading the library first if needed."""
+        if entry not in self._symbols:
             build_all([self])
-            fn = getattr(ctypes.CDLL(str(self.library())), self.entry)
-            fn.argtypes = self.argtypes
+            lib = self.library()
+            if lib not in _LOADED:
+                _LOADED[lib] = ctypes.CDLL(str(lib))
+            fn = getattr(_LOADED[lib], entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._symbols[entry] = fn
+        return self._symbols[entry]
+
+    def function(self):
+        """The loaded C entry point."""
+        return self.symbol(self.entry, self.argtypes)
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream (the stream is appended as
@@ -112,16 +122,24 @@ class Kernel:
         self.launches += 1
 
 
+_LOADED: dict[Path, ctypes.CDLL] = {}
+
+
 def build_all(kernels) -> None:
-    """Compile every kernel whose library is missing, all nvcc processes at
-    once."""
-    started = [(k, b) for k in kernels if (b := k._start_build()) is not None]
+    """Compile every library that is missing, one nvcc process per source,
+    all at once."""
+    by_lib: dict[Path, list[Kernel]] = {}
+    for k in kernels:
+        by_lib.setdefault(k.library(), []).append(k)
+    started = [(ks, b) for ks in by_lib.values() if (b := ks[0]._start_build()) is not None]
     errors = []
-    for k, (proc, tmp) in started:
+    for ks, (proc, tmp) in started:
         try:
-            k._finish_build(proc, tmp)
+            ks[0]._finish_build(proc, tmp)
         except RuntimeError as e:
             errors.append(str(e))
+        for k in ks[1:]:
+            k.build_log = ks[0].build_log
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -134,4 +152,12 @@ RENDER = Kernel(
     "render", "render_kernel.cu", "render_launch",
     [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P],
 )
-KERNELS = {k.name: k for k in (INTERSECT, RENDER)}
+RENDER_RESIDUALS = Kernel(
+    "render_residuals", "render_kernel.cu", "render_residuals_launch",
+    [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
+)
+GRAD = Kernel(
+    "grad", "grad_kernel.cu", "grad_launch",
+    [P, I, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+)
+KERNELS = {k.name: k for k in (INTERSECT, RENDER, RENDER_RESIDUALS, GRAD)}

@@ -3,9 +3,17 @@ version and the chunk renderer around them.
 
 Port of the dense form of spectral_tpu/ops/pallas/render_kernel.py
 (pack_scene :71, n_uniforms :2314, render_rays_pallas :2603,
-camera_vector :3240, render_chunk_pallas :3407). ``render_rays`` launches
-csrc/render_kernel.cu for CUDA tensors and runs ``render_rays_reference``,
-the plain PyTorch version, for CPU tensors; there is no other fallback.
+render_rays_pallas_residuals :2421, camera_vector :3240,
+render_chunk_pallas :3407). ``render_rays`` and ``render_rays_residuals``
+launch csrc/render_kernel.cu for CUDA tensors and run
+``render_rays_reference``, the plain PyTorch version, for CPU tensors; there
+is no other fallback.
+
+The residual form also returns what the fused backward replays
+(ops/cuda/grad_kernel.py), in the JAX layout: hero [spp, N], n_valid
+[spp, N], power [spp, W, N] and the per-bounce material residual matres
+[spp, B, N] int32 (mat + 1 for a hit, -1 for a background miss, 0 once the
+path has ended).
 
 The plain version repeats the JAX kernel's arithmetic on [N] tensors, op for
 op and in the same order, with fused multiply-adds exactly where XLA's CPU
@@ -136,9 +144,19 @@ def hash_uniforms(keys: torch.Tensor, sample: int, n_draws: int) -> torch.Tensor
     return (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def _lut(row: torch.Tensor, cell: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+def lut(row: torch.Tensor, cell: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
     """Lerp of a 95-sample curve at cells/fractions (spectrum.cu:11-22)."""
     return fma(1.0 - frac, row[cell], frac * row[cell + 1])
+
+
+def comb_cell(hero: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Wavelength w of the hero comb (spectrum.cu:31-48, with the wrap) and
+    its table cell (int64) and fraction; csrc/spectrum.cuh::comb_cell."""
+    lw = hero + w * (_SPAN / float(W))
+    lw = torch.where(lw > LAMBDA_MAX, lw - _SPAN, lw)
+    xg = (lw - LAMBDA_MIN) * _CELL_SCALE
+    cw = xg.to(torch.int32).clamp(0, N_CIE_SAMPLES - 2).long()
+    return lw, cw, xg - cw.to(torch.float32)
 
 
 def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps):
@@ -171,11 +189,12 @@ def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, step
 
 def render_rays_reference(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-    image_width, rand=None, steps=None,
-) -> torch.Tensor:
+    image_width, rand=None, steps=None, residuals=False,
+):
     """The plain PyTorch version of the megakernel: XYZ [N, 3] summed over
-    spp. ``steps`` (int32 [N]), when given, receives each ray's count of
-    live ray-steps (bounces traced while its path was alive)."""
+    spp; with ``residuals``, the tuple (xyz, hero, n_valid, power, matres).
+    ``steps`` (int32 [N]), when given, receives each ray's count of live
+    ray-steps (bounces traced while its path was alive)."""
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
@@ -190,6 +209,11 @@ def render_rays_reference(
     keys = None if rand is not None else pixel_keys(seed, px, py, image_width)
     accx, accy, accz = zero, zero, zero
     live = torch.zeros(n, dtype=torch.int32, device=dev)
+    if residuals:
+        res_hero = torch.empty((spp, n), dtype=f32, device=dev)
+        res_nvalid = torch.empty((spp, n), dtype=f32, device=dev)
+        res_power = torch.empty((spp, W, n), dtype=f32, device=dev)
+        res_mat = torch.empty((spp, bounces, n), dtype=torch.int32, device=dev)
 
     for s in range(spp):
         u = rand[s] if rand is not None else hash_uniforms(keys, s, n_draws)
@@ -209,18 +233,16 @@ def render_rays_reference(
 
         # hero wavelengths (spectrum.cu:31-48) and their table cells
         hero = fma(_SPAN, u[2], LAMBDA_MIN)
+        if residuals:
+            res_hero[s] = hero
         lam, cell, frac, d65w, bgw = [], [], [], [], []
         for w in range(W):
-            lw = hero + w * (_SPAN / float(W))
-            lw = torch.where(lw > LAMBDA_MAX, lw - _SPAN, lw)
-            xg = (lw - LAMBDA_MIN) * _CELL_SCALE
-            cw = xg.to(torch.int32).clamp(0, N_CIE_SAMPLES - 2).long()
-            fw = xg - cw.to(f32)
+            lw, cw, fw = comb_cell(hero, w)
             lam.append(lw)
             cell.append(cw)
             frac.append(fw)
-            d65w.append(_lut(tables[3], cw, fw))
-            bgw.append(_lut(tables[4], cw, fw))
+            d65w.append(lut(tables[3], cw, fw))
+            bgw.append(lut(tables[4], cw, fw))
 
         power = [one] * W
         alive = one
@@ -242,6 +264,9 @@ def render_rays_reference(
             nb = [torch.where(best_hit_b, torch.where(front, tp[:, k], -tp[:, k]), zero) for k in range(3)]
             nbx, nby, nbz = nb
             mat_i = torch.where(best_hit_b, tp[:, 16].to(torch.int32), torch.zeros_like(idx))
+            if residuals:
+                none = torch.zeros_like(mat_i)
+                res_mat[s, b] = torch.where(hit > 0.0, mat_i + 1, torch.where(miss > 0.0, none - 1, none))
             mr = mat_pack[mat_i.long()]
             c0, c1, c2 = mr[:, 0], mr[:, 1], mr[:, 2]
             is_lamb, is_metal, is_diel, is_emis = mr[:, 3], mr[:, 4], mr[:, 5], mr[:, 6]
@@ -338,20 +363,26 @@ def render_rays_reference(
 
         # bounce-limit exhaustion contributes nothing (rendering.cu:38-39)
         n_valid = torch.where(alive > 0.0, zero, n_valid)
+        if residuals:
+            res_nvalid[s] = n_valid
+            res_power[s] = torch.stack(power)
 
         # XYZ integration (dev_spectrum_to_XYZ, color.cu:88-104)
         sx_, sy_, sz_ = zero, zero, zero
         delta = torch.full((n,), _DELTA, dtype=f32, device=dev)
         for w in range(W):
             contrib = power[w] * torch.where(float(w) < n_valid, delta, zero)
-            sx_ = fma(contrib, _lut(tables[0], cell[w], frac[w]), sx_)
-            sy_ = fma(contrib, _lut(tables[1], cell[w], frac[w]), sy_)
-            sz_ = fma(contrib, _lut(tables[2], cell[w], frac[w]), sz_)
+            sx_ = fma(contrib, lut(tables[0], cell[w], frac[w]), sx_)
+            sy_ = fma(contrib, lut(tables[1], cell[w], frac[w]), sy_)
+            sz_ = fma(contrib, lut(tables[2], cell[w], frac[w]), sz_)
         accx, accy, accz = accx + sx_, accy + sy_, accz + sz_
 
     if steps is not None:
         steps.copy_(live)
-    return torch.stack([accx, accy, accz], dim=1)
+    xyz = torch.stack([accx, accy, accz], dim=1)
+    if residuals:
+        return xyz, res_hero, res_nvalid, res_power, res_mat
+    return xyz
 
 
 def render_rays(
@@ -371,6 +402,18 @@ def render_rays(
             cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
             image_width, rand, steps,
         )
+    xyz = torch.empty((px.shape[0], 3), dtype=torch.float32, device=px.device)
+    _launch(
+        build.RENDER, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
+        image_width, rand, xyz, steps,
+    )
+    return xyz
+
+
+def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
+            image_width, rand, xyz, steps, residuals=()):
+    """Launch the megakernel or its residual form on CUDA tensors, writing
+    xyz, steps (or None) and the residual buffers."""
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
     f32 = torch.float32
@@ -379,20 +422,59 @@ def render_rays(
     )
     if rand is not None:
         rand = rand.to(f32).contiguous()
-    n = px.shape[0]
-    xyz = torch.empty((n, 3), dtype=f32, device=px.device)
-    build.RENDER.launch(
+    kernel.launch(
         px.device,
         cam_vec.data_ptr(), seed & _M32,
         tri_pack.data_ptr(), tri_pack.shape[0],
         mat_pack.data_ptr(), mat_pack.shape[0],
-        tables.data_ptr(), px.data_ptr(), py.data_ptr(), n, image_width,
+        tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0], image_width,
         spp, bounces,
         None if rand is None else rand.data_ptr(),
         xyz.data_ptr(),
         None if steps is None else steps.data_ptr(),
+        *(r.data_ptr() for r in residuals),
     )
-    return xyz
+
+
+def render_rays_residuals(
+    cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
+    image_width, rand=None, steps=None, out=None,
+):
+    """``render_rays`` that also records the path residuals: returns
+    (xyz [N, 3], hero [spp, N], n_valid [spp, N], power [spp, W, N],
+    matres int32 [spp, bounces, N]). The xyz equals ``render_rays``'s on
+    the same draws. ``out``: preallocated (hero, n_valid, power, matres) to
+    write into; every element is written. CUDA tensors launch the kernel's
+    residual form (its own launch count), CPU tensors run the plain
+    version."""
+    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps)
+    n = px.shape[0]
+    dev = px.device
+    shapes = ((spp, n), (spp, n), (spp, W, n), (spp, bounces, n))
+    dtypes = (torch.float32, torch.float32, torch.float32, torch.int32)
+    if out is not None and any(
+        o.shape != sh or o.dtype != dt or o.device != dev or not o.is_contiguous()
+        for o, sh, dt in zip(out, shapes, dtypes)
+    ):
+        raise ValueError(f"out must be contiguous tensors of shapes {shapes} and types {dtypes} on {dev}")
+    if px.device.type == "cpu":
+        xyz, *res = render_rays_reference(
+            cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
+            image_width, rand, steps, residuals=True,
+        )
+        if out is None:
+            return (xyz, *res)
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return (xyz, *out)
+    xyz = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        out = tuple(torch.empty(sh, dtype=dt, device=dev) for sh, dt in zip(shapes, dtypes))
+    _launch(
+        build.RENDER_RESIDUALS, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
+        image_width, rand, xyz, steps, out,
+    )
+    return (xyz, *out)
 
 
 def render_chunk(

@@ -9,7 +9,10 @@ a GPU machine that has only PyTorch:
 (--noconftest: tests/conftest.py clears JAX caches after each module.)
 Kernel and plain version compute the same float32 operations in the same
 order (ops/fp32.py), so discrete outputs must be equal and the rendered
-XYZ within the render tolerance of tests/test_torch_render.py.
+XYZ within the render tolerance of tests/test_torch_render.py. The replay
+kernel sums its gradients over rays in another order than the plain
+version: per column within 2e-4 of the column's largest value, as in
+tests/test_torch_grad.py, and bit-identical between two of its launches.
 """
 
 from __future__ import annotations
@@ -18,16 +21,20 @@ import numpy as np
 import pytest
 import torch
 
+from spectral_tpu_torch.diff import render_chunk_diff_fused
 from spectral_tpu_torch.models.camera import camera_vector
 from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, scene_camera
 from spectral_tpu_torch.ops.cuda import build
+from spectral_tpu_torch.ops.cuda.grad_kernel import render_grads, render_grads_reference
 from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     n_uniforms,
     pack_scene,
     render_rays,
     render_rays_reference,
+    render_rays_residuals,
 )
+from spectral_tpu_torch.parallel import train_step_fused, trainable_params
 from spectral_tpu_torch.ops.intersect import nearest_hit
 
 
@@ -83,3 +90,81 @@ def test_render_kernel_equals_plain(cuda_device, scene_id, injected):
     assert (err <= 2e-3 + 1e-5 * ref.abs()).all(), err.max().item()
     assert err.mean().item() <= 2e-5
     assert ref.sum().item() > 0
+
+
+def _columns_close(got, ref, rel=2e-4):
+    got, ref = got.double().reshape(ref.shape[0], -1), ref.double().reshape(ref.shape[0], -1)
+    for j in range(ref.shape[1]):
+        assert (got[:, j] - ref[:, j]).abs().max() <= rel * ref[:, j].abs().max(), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_id", (CORNELL, PRISM, TRIS))
+@pytest.mark.parametrize("injected", (True, False), ids=("planes", "hash"))
+def test_residual_and_replay_kernels_equal_plain(cuda_device, scene_id, injected):
+    w = h = 32
+    spp, bounces = 4, 5
+    n = w * h
+    tri, mat, tab = pack_scene(build_scene(scene_id, cuda_device))
+    cam = camera_vector(scene_camera(scene_id, w, h, cuda_device))
+    px = (torch.arange(n, device=cuda_device) % w).float()
+    py = (torch.arange(n, device=cuda_device) // w).float()
+    rand = None
+    if injected:
+        planes = np.random.default_rng(scene_id).uniform(size=(spp, n_uniforms(bounces), n))
+        rand = torch.from_numpy(planes.astype(np.float32)).to(cuda_device)
+    # garbage in every residual buffer: the kernel must write each element
+    out = (
+        torch.full((spp, n), 7.0, device=cuda_device), torch.full((spp, n), 7.0, device=cuda_device),
+        torch.full((spp, 7, n), 7.0, device=cuda_device),
+        torch.full((spp, bounces, n), 7, dtype=torch.int32, device=cuda_device),
+    )
+    before = build.RENDER_RESIDUALS.launches
+    xyz, *res = render_rays_residuals(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand, out=out)
+    torch.cuda.synchronize()
+    assert build.RENDER_RESIDUALS.launches == before + 1
+    fwd = render_rays(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand)
+    assert torch.equal(xyz, fwd)
+    ref_xyz, *ref = render_rays_reference(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand, residuals=True)
+    for k in (0, 1, 3):
+        assert torch.equal(res[k], ref[k]), k
+    torch.testing.assert_close(res[2], ref[2], rtol=2e-4, atol=1e-5)
+    assert ((xyz - ref_xyz).abs() <= 2e-3 + 1e-5 * ref_xyz.abs()).all()
+    assert (res[3] == 0).any() and (res[3] == -1).any()
+
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=(n, 3)).astype(np.float32)).to(cuda_device)
+    sell = scene_id == PRISM
+    before = build.GRAD.launches
+    got = render_grads(mat, tab, g, *res, spp, bounces, want_bg_grads=True, want_sellmeier=sell)
+    again = render_grads(mat, tab, g, *res, spp, bounces, want_bg_grads=True, want_sellmeier=sell)
+    torch.cuda.synchronize()
+    assert build.GRAD.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # deterministic reduction
+    want = render_grads_reference(mat, tab, g, *res, spp, bounces, want_bg_grads=True, want_sellmeier=sell)
+    assert len(got) == len(want) == (5 if sell else 3)
+    _columns_close(got[0], want[0])
+    _columns_close(got[1][:, None], want[1][:, None])
+    _columns_close(got[2][:, None], want[2][:, None])
+    for a, b in zip(got[3:], want[3:]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-6 * float(b.abs().max()))
+    assert got[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_fused_train_step_on_card(cuda_device):
+    scene = build_scene(CORNELL, cuda_device)
+    size, spp, bounces, seed, lr = 32, 4, 4, 7, 1e-13 * 256 / (32 * 32)
+    cam = scene_camera(CORNELL, size, size, cuda_device)
+    with torch.no_grad():
+        target = render_chunk_diff_fused(scene.materials, scene, cam, seed, 0, 0, size, size, spp, bounces) / spp
+    params = {k: v.clone() for k, v in trainable_params(scene).items() if k in ("coeffs", "emission_power")}
+    params["coeffs"][3, 2] += 1.5
+    before = (build.RENDER_RESIDUALS.launches, build.GRAD.launches)
+    losses = []
+    for _ in range(3):
+        params, loss = train_step_fused(params, scene, cam, target, seed, spp, bounces, lr=lr)
+        losses.append(float(loss))
+    assert (build.RENDER_RESIDUALS.launches, build.GRAD.launches) == (before[0] + 3, before[1] + 3)
+    assert losses[0] > losses[1] > losses[2], losses
+    assert all(torch.isfinite(v).all() for v in params.values())

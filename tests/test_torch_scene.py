@@ -250,7 +250,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; "
         "import spectral_tpu_torch.main, spectral_tpu_torch.runtime.render_manager; "
-        "import spectral_tpu_torch.ops.cuda.intersect_kernel; "
+        "import spectral_tpu_torch.ops.cuda.intersect_kernel, spectral_tpu_torch.ops.cuda.grad_kernel; "
+        "import spectral_tpu_torch.diff, spectral_tpu_torch.parallel; "
         "assert not any(m == 'spectral_tpu' or m.startswith('spectral_tpu.') for m in sys.modules); "
         "print('ok')"
     )
