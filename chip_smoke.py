@@ -31,14 +31,39 @@ Phases, each fatal on failure:
    step, and a falling loss;
 7. the dispersion path: ``render_rays_diff_fused`` with reparam_glass = 2
    on PRISM's 64x32 crop, 64 spp, 6 bounces (the fused configuration of
-   examples/inverse_dispersion.py); a finite, nonzero Sellmeier gradient.
+   examples/inverse_dispersion.py); a finite, nonzero Sellmeier gradient;
+8. the large-scene kernels against their plain versions on
+   build_tri_field(520, seed=3) and on the 10k field (10008, seed=0), at
+   128x64, 4 spp, 5 bounces, with planes and with hash draws: the leaf
+   megakernel, forward and residual (into garbage-filled buffers); the
+   sorted scheduler's three kernels, forward and residual; the sorted
+   scheduler against the leaf megakernel (one source of arithmetic: equal
+   paths); and the leaf megakernel on CORNELL with 8-triangle leaves
+   against the dense megakernel. Live ray-steps and entered leaves equal;
+9. the large-scene kernels at the field's shapes (10k field, 512x256, 4 spp,
+   6 bounces, hash draws; bench.py:29-98), each timed beside its plain
+   version and its bound, and held against the plain version there;
+10. the field render as a user runs it: RenderManager with one chunk the
+   size of the frame, through render_chunk into the sorted scheduler; the
+   same frame through the leaf megakernel (sched="mega"), equal; then the
+   200k field (200064, seed=0; bench.py:281-287) on the same frame;
+11. the field training path: three ``train_step_fused`` steps on the 10k
+   field at 512x256, 4 spp, 6 bounces (bench.py:228-280), from a perturbed
+   white against a target at the true materials, and one fused gradient
+   through the leaf megakernel's residual form (sched="mega").
 
-Launch counts are set to 0 just before each of phases 5-7 and read just
-after. Prints a ``{"kernels": [...]}`` line after phase 7, with each
-kernel's launches on its path (the render megakernel's from phase 5, the
-fused kernels' from phase 6), then the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
-without a CUDA device or outside a checkout of the repository.
+Launch counts are set to 0 just before each of phases 5-7 and 10-11 and
+read just after. Prints a ``{"kernels": [...]}`` line after phase 11, with
+each kernel's launches on its path (the render megakernel's from phase 5,
+the fused kernels' from phase 6, the leaf megakernel's and the sorted
+kernels' from phase 10, the leaf residual form's from phase 11), then the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Exits
+non-zero, printing no result, without a CUDA device or outside a checkout
+of the repository.
+
+``python3 chip_smoke.py --leaf-sizes`` instead times both large-scene
+schedulers on the 10k and 200k fields at leaf sizes 8 to 128 (the sweep
+behind ops/cuda/render_kernel.py::LEAF_SIZE) and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -78,6 +103,20 @@ SELL_FLOPS_PER_MATERIAL = 70
 # gradients per column within REPLAY_REL of the column's largest value
 POWER_RTOL, POWER_ATOL = 2e-4, 1e-5
 REPLAY_REL = 2e-4
+# the leaf sweep (csrc/leaf_sweep.cuh): a valid leaf's slab test per live
+# ray-step; the curves the sorted kernels recompute from the hero per
+# launch; the XYZ tail the integrate kernel computes per sample-ray
+SLAB_FLOPS_PER_LEAF = 25
+N_TABLES_FLOATS = 5 * 95
+CURVE_FLOPS = 100
+XYZ_FLOPS = 150
+# the ray state (ops/cuda/wavefront_kernel.py): 17 floats a sample-ray
+STATE_BYTES = 4 * 17
+# the field configurations (bench.py:29-98, 228-287)
+FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES = 512, 256, 4, 6
+FIELD_TRIS, BIG_FIELD_TRIS = 10008, 200064
+FIELD_SEED = 4321
+FIELD_LR = 1e-13 * 256 / (FIELD_W * FIELD_H)
 # the training path: the JAX package's fused-gradient configuration
 # (BASELINE.md:44,46), at the full frame
 TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_SEED = 1920, 1080, 16, 8, 1234
@@ -153,12 +192,8 @@ def check_residuals(name: str, args, with_steps: bool = False):
 
     n, spp, bounces = args[5].numel(), args[7], args[8]
     dev = args[5].device
-    out = (
-        torch.full((spp, n), 7.0, device=dev), torch.full((spp, n), 7.0, device=dev),
-        torch.full((spp, 7, n), 7.0, device=dev), torch.full((spp, bounces, n), 7, dtype=torch.int32, device=dev),
-    )
     steps = torch.zeros(n, dtype=torch.int32, device=dev) if with_steps else None
-    xyz, *res = render_rays_residuals(*args, steps, out=out)
+    xyz, *res = render_rays_residuals(*args, steps, out=garbage(spp, bounces, n, dev))
     fwd = render_rays(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -233,6 +268,172 @@ def replay_work(matres, n_mats: int, sell: bool) -> tuple[float, float]:
     return flops, nbytes
 
 
+def garbage(spp: int, bounces: int, n: int, dev) -> tuple:
+    """Residual buffers filled with 7s: a kernel must write every element."""
+    return (
+        torch.full((spp, n), 7.0, device=dev), torch.full((spp, n), 7.0, device=dev),
+        torch.full((spp, 7, n), 7.0, device=dev), torch.full((spp, bounces, n), 7, dtype=torch.int32, device=dev),
+    )
+
+
+def compare_residuals(name: str, got, ref) -> tuple[float, float]:
+    """(xyz, hero, n_valid, power, matres) against a reference: discrete
+    residuals and hero equal, power and xyz within tolerance. Returns the
+    largest error of xyz and power, and the mean error of xyz."""
+    for k, what in ((1, "hero"), (2, "n_valid"), (4, "matres")):
+        if not torch.equal(got[k], ref[k]):
+            raise SystemExit(f"{name}: {what} differs")
+    p_err = (got[3] - ref[3]).abs()
+    x_err = (got[0] - ref[0]).abs()
+    bad = int((p_err > POWER_ATOL + POWER_RTOL * ref[3].abs()).sum()) + int((x_err > ATOL + RTOL * ref[0].abs()).sum())
+    mean = float(x_err.mean())
+    if bad or mean > MEAN_TOL or not torch.isfinite(got[0]).all() or float(ref[0].sum()) <= 0:
+        raise SystemExit(f"{name}: values off {bad}, xyz mean abs {mean}")
+    return max(float(p_err.max()), float(x_err.max())), mean
+
+
+def field_args(scene, w: int, h: int, spp: int, bounces: int, rand, seed: int, leaf_size=None):
+    """The arguments of the large-scene renders of ``scene`` at w x h and
+    its leaf pack, near-to-far from the Cornell camera."""
+    from spectral_tpu_torch.models.camera import camera_vector
+    from spectral_tpu_torch.models.scenes import CORNELL, scene_camera
+    from spectral_tpu_torch.ops.cuda.render_kernel import LEAF_SIZE, pack_scene_auto
+
+    dev = scene.normal.device
+    cam = camera_vector(scene_camera(CORNELL, w, h, dev))
+    tri, mat, tab, leaf = pack_scene_auto(scene, cam, leaf_size or LEAF_SIZE)
+    px = (torch.arange(w * h, device=dev) % w).float()
+    py = (torch.arange(w * h, device=dev) // w).float()
+    return (cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand), leaf
+
+
+def check_leaves(name: str, args, leaf) -> dict:
+    """The leaf megakernel (forward, and residual into garbage) and the
+    sorted scheduler (forward and residual) against their plain versions,
+    and the two schedulers against each other. Returns the largest errors
+    and the plain versions' times in ms."""
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_rays, render_rays_reference, render_rays_residuals
+    from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront, render_rays_wavefront_reference
+
+    n, spp, bounces = args[5].numel(), args[7], args[8]
+    dev = args[5].device
+    wf = (*args[:5], leaf, *args[5:])
+    c = [torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(4)]
+    wc = [torch.zeros((spp, n), dtype=torch.int32, device=dev) for _ in range(4)]
+    fwd = render_rays(*args, c[0], leaf_pack=leaf, visits=c[1])
+    res = render_rays_residuals(*args, out=garbage(spp, bounces, n, dev), leaf_pack=leaf)
+    wres = render_rays_wavefront(*wf, save_residuals=True, steps=wc[0], visits=wc[1], out=garbage(spp, bounces, n, dev))
+    wfwd = render_rays_wavefront(*wf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = render_rays_reference(*args, c[2], residuals=True, leaf_pack=leaf, visits=c[3])
+    torch.cuda.synchronize()
+    mega_plain_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    wref = render_rays_wavefront_reference(*wf, save_residuals=True, steps=wc[2], visits=wc[3])
+    torch.cuda.synchronize()
+    sorted_plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not (torch.equal(c[0], c[2]) and torch.equal(c[1], c[3]) and torch.equal(wc[0], wc[2]) and torch.equal(wc[1], wc[3])):
+        raise SystemExit(f"{name}: live ray-steps or entered leaves differ from the plain versions")
+    if not (torch.equal(wc[0].sum(0), c[0]) and torch.equal(wc[1].sum(0), c[1])):
+        raise SystemExit(f"{name}: the schedulers' live ray-steps or entered leaves differ")
+    if not torch.equal(res[0], fwd) or not torch.equal(wres[0], wfwd):
+        raise SystemExit(f"{name}: a residual form's xyz differs from its forward's")
+    mega_err, mega_mean = compare_residuals(f"{name} leaf megakernel", res, ref)
+    sorted_err, sorted_mean = compare_residuals(f"{name} sorted", wres, wref)
+    between, _ = compare_residuals(f"{name} sorted vs leaf megakernel", wres, res)
+    equal = all(torch.equal(a, b) for a, b in zip(wres, res))
+    log(
+        f"  {name}: leaf megakernel max abs {mega_err:.3g} (mean {mega_mean:.3g}), sorted max abs {sorted_err:.3g} "
+        f"(mean {sorted_mean:.3g}), sorted vs leaf megakernel max abs {between:.3g} (bit-equal: {equal}); "
+        f"{int(c[0].sum())} live ray-steps, {int(c[1].sum())} leaves entered; plain {mega_plain_ms:.0f} / {sorted_plain_ms:.0f} ms"
+    )
+    return dict(mega_err=mega_err, mega_mean=mega_mean, sorted_err=sorted_err, sorted_mean=sorted_mean, between=between)
+
+
+def timed_sorted(args, leaf, plain: bool, reps: int = 1):
+    """One sorted-scheduler render through the kernels (or their plain
+    versions), the glue of ops/cuda/wavefront_kernel.py repeated here so
+    that each launch is timed with CUDA events; the best of ``reps``
+    renders after a warm-up. Returns (ms of the camera launch, ms of the
+    bounce launches together, ms of the integrate launch, ms of the sort
+    and gather glue, live ray-steps of bounces >= 1, leaves entered by the
+    camera launch, leaves entered by the bounce launches, xyz per
+    sample-ray)."""
+    from spectral_tpu_torch.ops.cuda import wavefront_kernel as wk
+
+    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    camera, bounce, integrate = wk._PLAIN if plain else wk._CUDA
+    n = px.numel()
+    nrays = spp * n
+    dev = px.device
+    best = None
+    for rep in range(reps + 1):
+        steps = torch.zeros((spp, n), dtype=torch.int32, device=dev)
+        visits = torch.zeros_like(steps)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4 * bounces + 2)]
+        state = torch.empty((wk.STATE_ROWS, nrays), device=dev)
+        ev[0].record()
+        camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, visits)
+        ev[1].record()
+        v_cam = visits.sum()
+        orig = torch.arange(nrays, dtype=torch.int32, device=dev)
+        lo, inv_ext = wk._key_box(leaf)
+        k = 2
+        for b in range(1, bounces):
+            ev[k].record()
+            perm = torch.argsort(wk._sort_keys(state, lo, inv_ext), stable=True)
+            state = state.index_select(1, perm)
+            orig = orig.index_select(0, perm)
+            ev[k + 1].record()
+            bounce(seed, tri, mat, tab, leaf, px, py, spp, bounces, b, w, rand, state, orig, None, steps, visits)
+            ev[k + 2].record()
+            k += 3
+        xyz = torch.empty((nrays, 3), device=dev)
+        ev[k].record()
+        integrate(tab, state, orig, n, spp, xyz)
+        ev[k + 1].record()
+        torch.cuda.synchronize()
+        t_cam = ev[0].elapsed_time(ev[1])
+        t_glue = sum(ev[2 + 3 * i].elapsed_time(ev[3 + 3 * i]) for i in range(bounces - 1))
+        t_bounce = sum(ev[3 + 3 * i].elapsed_time(ev[4 + 3 * i]) for i in range(bounces - 1))
+        t_int = ev[k].elapsed_time(ev[k + 1])
+        out = (t_cam, t_bounce, t_int, t_glue, int(steps.sum()) - nrays, int(v_cam), int(visits.sum() - v_cam), xyz)
+        if rep > 0 and (best is None or sum(out[:3]) < sum(best[:3])):
+            best = out
+    return best
+
+
+def leaf_work(args, leaf) -> tuple[float, float, int, int]:
+    """(scene bytes, ray bytes read and written by a forward, valid leaves,
+    leaf size) of a large-scene render."""
+    cam, _, tri, mat, tab, px, *_ = args
+    n_valid = int((leaf[:, 6] != 0).sum())
+    scene_bytes = 4 * (tri.numel() + leaf.numel() + mat.numel() + tab.numel() + cam.numel())
+    return scene_bytes, 4 * 5 * px.numel(), n_valid, tri.shape[0] // leaf.shape[0]
+
+
+def leaf_size_sweep(dev) -> int:
+    """Both schedulers on the 10k and 200k fields at leaf sizes 8-128, at
+    the field frame (hash draws); prints one JSON line."""
+    from spectral_tpu_torch.models.scenes import build_tri_field
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_rays
+    from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
+
+    rows = []
+    for n_tris in (FIELD_TRIS, BIG_FIELD_TRIS):
+        scene = build_tri_field(n_tris, 0, device=dev)
+        for k in (8, 16, 32, 64, 128):
+            args, leaf = field_args(scene, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES, None, FIELD_SEED, k)
+            wf = (*args[:5], leaf, *args[5:])
+            sorted_ms = cuda_ms(lambda: render_rays_wavefront(*wf), 2)
+            mega_ms = cuda_ms(lambda: render_rays(*args, leaf_pack=leaf), 1) if n_tris == FIELD_TRIS else None
+            rows.append({"tris": n_tris, "leaf_size": k, "leaves": leaf.shape[0], "sorted_ms": sorted_ms, "mega_ms": mega_ms})
+            log(f"  {n_tris} tris, leaf size {k} ({leaf.shape[0]} leaves): sorted {sorted_ms} ms, leaf megakernel {mega_ms} ms")
+    print(json.dumps({"leaf_sizes": rows, "frame": f"{FIELD_W}x{FIELD_H}, {FIELD_SPP} spp, {FIELD_BOUNCES} bounces"}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
@@ -242,16 +443,19 @@ def main() -> int:
         from spectral_tpu_torch.diff import render_rays_diff_fused
         from spectral_tpu_torch.io.image import decode_bmp
         from spectral_tpu_torch.models.camera import camera_vector
-        from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, scene_camera
+        from spectral_tpu_torch.config import RenderParams
+        from spectral_tpu_torch.diff import render_chunk_diff_fused
+        from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, build_tri_field, scene_camera
         from spectral_tpu_torch.ops.cuda import build
         from spectral_tpu_torch.ops.cuda.grad_kernel import render_grads
         from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
         from spectral_tpu_torch.ops.cuda.render_kernel import (
-            n_uniforms, pack_scene, render_rays, render_rays_reference, render_rays_residuals,
+            n_uniforms, order_leaves_near_to_far, pack_scene, pack_scene_leaves, render_chunk, render_rays,
+            render_rays_reference, render_rays_residuals,
         )
         from spectral_tpu_torch.ops.intersect import nearest_hit
         from spectral_tpu_torch.parallel import train_step_fused, trainable_params
-        from spectral_tpu_torch.runtime.render_manager import chunk_seed
+        from spectral_tpu_torch.runtime.render_manager import RenderManager, chunk_seed
         from spectral_tpu_torch.utils.logging import get_log_context
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -264,6 +468,9 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(f"import of torch and the port, and the CUDA context: {time.perf_counter() - T_START} s")
+    if sys.argv[1:] == ["--leaf-sizes"]:
+        build.build_all(build.KERNELS.values())
+        return leaf_size_sweep(dev)
 
     # ---- 2. build, and the first launch ----------------------------------
     t0 = time.perf_counter()
@@ -478,6 +685,168 @@ def main() -> int:
     if not torch.isfinite(d_b).all() or float(d_b.abs().max()) <= 0 or not torch.isfinite(out).all():
         raise SystemExit("dispersion path: the Sellmeier gradient is not finite and nonzero")
 
+    # ---- 8. the large-scene kernels against their plain versions ----------
+    lw, lh, l_spp, l_bounces = 128, 64, 4, 5
+    leaf_errs = []
+    log(f"leaf megakernel and sorted scheduler vs plain, {lw}x{lh}, {l_spp} spp, {l_bounces} bounces:")
+    field = build_tri_field(FIELD_TRIS, 0, device=dev)
+    for sname, scene in (("field520", build_tri_field(520, 3, device=dev)), ("field10k", field)):
+        planes = rng.uniform(size=(l_spp, n_uniforms(l_bounces), lw * lh)).astype(np.float32)
+        for mode, rand in (("planes", torch.from_numpy(planes).to(dev)), ("hash", None)):
+            args, leaf = field_args(scene, lw, lh, l_spp, l_bounces, rand, chunk_seed(0, 0, lw) + 7)
+            leaf_errs.append(check_leaves(f"{sname}/{mode}", args, leaf))
+    c_tri, c_mat, c_tab, c_leaf = pack_scene_leaves(cornell, leaf_size=8)
+    c_cam = camera_vector(scene_camera(CORNELL, lw, lh, dev))
+    c_tri, c_leaf = order_leaves_near_to_far(c_tri, c_leaf, c_cam[0:3])
+    c_px = (torch.arange(lw * lh, device=dev) % lw).float()
+    c_py = (torch.arange(lw * lh, device=dev) // lw).float()
+    c_args = (c_cam, 99, c_tri, c_mat, c_tab, c_px, c_py, l_spp, l_bounces, lw, None)
+    dense = render_rays_residuals(c_cam, 99, tri, mat, tab, c_px, c_py, l_spp, l_bounces, lw, None)
+    on_cornell, _ = compare_residuals("leaf megakernel on CORNELL vs dense", render_rays_residuals(*c_args, leaf_pack=c_leaf), dense)
+    log(f"  cornell/hash, {c_leaf.shape[0]} leaves of 8: leaf megakernel vs dense megakernel max abs {on_cornell:.3g}")
+    mega_err = max([e["mega_err"] for e in leaf_errs] + [on_cornell])
+    mega_mean = max(e["mega_mean"] for e in leaf_errs)
+    sorted_err = max(max(e["sorted_err"], e["between"]) for e in leaf_errs)
+    sorted_mean = max(e["sorted_mean"] for e in leaf_errs)
+
+    # ---- 9. the large-scene kernels at the field's shapes ------------------
+    fw, fh, f_spp, f_b = FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES
+    f_rays, f_samples = fw * fh, fw * fh * FIELD_SPP
+    f_args, f_leaf = field_args(field, fw, fh, f_spp, f_b, None, chunk_seed(0, 0, fw))
+    scene_bytes, ray_bytes, nl_valid, k_size = leaf_work(f_args, f_leaf)
+    log(f"leaf megakernel and sorted scheduler, 10k field ({field.num_tris} tris, {f_leaf.shape[0]} leaves of "
+        f"{k_size}), {fw}x{fh}, {f_spp} spp, {f_b} bounces, hash draws:")
+    f_steps = torch.zeros(f_rays, dtype=torch.int32, device=dev)
+    f_visits = torch.zeros_like(f_steps)
+    f_res = render_rays_residuals(*f_args, f_steps, leaf_pack=f_leaf, visits=f_visits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_ref = render_rays_reference(*f_args, residuals=True, leaf_pack=f_leaf)
+    torch.cuda.synchronize()
+    lm_plain_ms = 1e3 * (time.perf_counter() - t0)
+    e, m = compare_residuals("leaf megakernel at the field shape", f_res, f_ref)
+    mega_err, mega_mean = max(mega_err, e), max(mega_mean, m)
+    del f_ref
+    lm_ms = cuda_ms(lambda: render_rays(*f_args, leaf_pack=f_leaf), 3)
+    lmr_ms = cuda_ms(lambda: render_rays_residuals(*f_args, leaf_pack=f_leaf), 3)
+    f_live, f_entered = int(f_steps.to(torch.int64).sum()), int(f_visits.to(torch.int64).sum())
+    lm_flops = (f_live * (SHADE_FLOPS_PER_STEP + nl_valid * SLAB_FLOPS_PER_LEAF)
+                + f_entered * k_size * SWEEP_FLOPS_PER_TRI + f_samples * SAMPLE_FLOPS)
+    f_res_bytes = sum(x.numel() * x.element_size() for x in f_res[1:])
+    lm_bound, lm_by = bound_ms(lm_flops, scene_bytes + ray_bytes)
+    lmr_bound, lmr_by = bound_ms(lm_flops, scene_bytes + ray_bytes + f_res_bytes)
+    log(f"  leaf megakernel {lm_ms} ms, residual form {lmr_ms} ms (plain {lm_plain_ms} ms); {f_live} live ray-steps of "
+        f"{f_samples * f_b} nominal, {f_entered} leaves entered; bounds {lm_bound} ms ({lm_by}), {lmr_bound} ms ({lmr_by})")
+    wf_cam, wf_bounce, wf_int, wf_glue, wf_live, wf_vcam, wf_vb, wf_xyz = timed_sorted(f_args, f_leaf, False, reps=3)
+    p_cam, p_bounce, p_int, p_glue, p_live, p_vcam, p_vb, p_xyz = timed_sorted(f_args, f_leaf, True)
+    if (p_live, p_vcam, p_vb) != (wf_live, wf_vcam, wf_vb) or wf_live + f_samples != f_live or wf_vcam + wf_vb != f_entered:
+        raise SystemExit("sorted scheduler: live ray-steps or entered leaves differ from the plain version or the megakernel")
+    x_err = (wf_xyz - p_xyz).abs()
+    if float(x_err.max()) > ATOL or float(x_err.mean()) > MEAN_TOL:
+        raise SystemExit("sorted scheduler at the field shape: kernels disagree with their plain versions")
+    sorted_err = max(sorted_err, float(x_err.max()))
+    del p_xyz, wf_xyz
+    cam_flops = (f_samples * (SAMPLE_FLOPS + SHADE_FLOPS_PER_STEP + nl_valid * SLAB_FLOPS_PER_LEAF)
+                 + wf_vcam * k_size * SWEEP_FLOPS_PER_TRI)
+    cam_bound, cam_by = bound_ms(cam_flops, scene_bytes + 8 * f_rays + STATE_BYTES * f_samples)
+    b_flops = (wf_live * (SHADE_FLOPS_PER_STEP + CURVE_FLOPS + nl_valid * SLAB_FLOPS_PER_LEAF)
+               + wf_vb * k_size * SWEEP_FLOPS_PER_TRI)
+    b_bytes = (f_b - 1) * (scene_bytes + 8 * f_samples) + 2 * STATE_BYTES * wf_live
+    b_bound, b_by = bound_ms(b_flops, b_bytes)
+    int_bound, int_by = bound_ms(f_samples * XYZ_FLOPS, 4 * N_TABLES_FLOATS + f_samples * (40 + 4 + 12))
+    log(f"  sorted: camera {wf_cam} ms (plain {p_cam}), {f_b - 1} bounces {wf_bounce} ms (plain {p_bounce}), "
+        f"integrate {wf_int} ms (plain {p_int}), sort and gather {wf_glue} ms; bounds {cam_bound} ({cam_by}), "
+        f"{b_bound} ({b_by}), {int_bound} ({int_by}) ms; leaves entered {wf_vcam} + {wf_vb}")
+
+    # ---- 10. the field render as a user runs it ---------------------------
+    f_cam = scene_camera(CORNELL, fw, fh, dev)
+    f_params = RenderParams(xres=fw, aspect_ratio=fw / fh, nsamples=f_spp, bounce_limit=f_b, show=False)
+    for k in build.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rm = RenderManager(field, f_cam, f_params)
+    f_img = rm.render()
+    field_s = time.perf_counter() - t0
+    field_launches = {k.name: k.launches for k in build.KERNELS.values()}
+    mega_xyz = render_chunk(field, f_cam, chunk_seed(0, 0, fw), 0, 0, fw, fh, f_spp, f_b, sched="mega")
+    mega_launches = {k.name: k.launches - field_launches[k.name] for k in build.KERNELS.values()}
+    same = np.array_equal(mega_xyz.cpu().numpy(), rm._fb_xyz)
+    log(f"field render: {fw}x{fh}, {f_spp} spp, {f_b} bounces, 1 chunk, {field_s} s, "
+        f"{f_samples * f_b / field_s / 1e6} nominal Mrays/s; launches {field_launches}; the same frame through "
+        f"the leaf megakernel: launches {mega_launches}, equal: {same}")
+    if (field_launches["wavefront_camera"], field_launches["wavefront_bounce"], field_launches["wavefront_integrate"]) != (1, f_b - 1, 1):
+        raise SystemExit("field render did not go through the sorted scheduler's kernels")
+    if mega_launches["render_leaves"] != 1 or not same:
+        raise SystemExit("the leaf megakernel's frame differs from the sorted scheduler's")
+    lum = f_img.astype(np.float64).mean(-1)
+    log(f"  image {f_img.shape}, mean {lum.mean():.2f}, max {lum.max():.0f}, lit pixels {(lum > 0).mean():.4f}")
+    if f_img.shape != (fh, fw, 3) or lum.mean() < 1 or lum.max() < 255 or not np.isfinite(rm._fb_xyz).all():
+        raise SystemExit("field render: the image is black, unlit or not finite")
+    del mega_xyz
+    t0 = time.perf_counter()
+    big = build_tri_field(BIG_FIELD_TRIS, 0, device=dev)
+    big_build_s = time.perf_counter() - t0
+    for k in build.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    big_img = RenderManager(big, f_cam, f_params).render()
+    big_s = time.perf_counter() - t0
+    big_launches = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+    big_lum = big_img.astype(np.float64).mean(-1)
+    log(f"200k field: {big.num_tris} tris (built in {big_build_s} s), {big_s} s, "
+        f"{f_samples * f_b / big_s / 1e6} nominal Mrays/s, image mean {big_lum.mean():.2f}, max {big_lum.max():.0f}, "
+        f"launches {big_launches}")
+    if big_launches.get("wavefront_bounce") != f_b - 1 or big_lum.mean() < 1 or big_lum.max() < 255:
+        raise SystemExit("200k field render failed")
+    big_args, big_leaf = field_args(big, fw, fh, f_spp, f_b, None, chunk_seed(0, 0, fw))
+    big_cam, big_bounce, big_int, big_glue, *_ = timed_sorted(big_args, big_leaf, False)
+    log(f"  sorted kernels on the 200k field ({big_leaf.shape[0]} leaves): camera {big_cam} ms, bounces {big_bounce} ms, "
+        f"integrate {big_int} ms, sort and gather {big_glue} ms")
+    del big, big_args, big_leaf
+    torch.cuda.empty_cache()
+
+    # ---- 11. the field training path ---------------------------------------
+    with torch.no_grad():
+        f_target = render_chunk(field, f_cam, FIELD_SEED, 0, 0, fw, fh, f_spp, f_b) / f_spp
+    params = {k: v.clone() for k, v in trainable_params(field).items() if k in ("coeffs", "emission_power")}
+    params["coeffs"][0, 2] += 1.5  # the white of walls and boxes
+    for k in build.KERNELS.values():
+        k.launches = 0
+    f_losses, f_step_ms = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, loss = train_step_fused(params, field, f_cam, f_target, FIELD_SEED, f_spp, f_b, lr=FIELD_LR)
+        end.record()
+        torch.cuda.synchronize()
+        f_step_ms.append(start.elapsed_time(end))
+        f_losses.append(float(loss))
+    ftrain_launches = {k.name: k.launches for k in build.KERNELS.values()}
+    log(f"field training path: {fw}x{fh}, {f_spp} spp, {f_b} bounces, lr {FIELD_LR}: ms per step {f_step_ms}, "
+        f"loss {f_losses}, launches {ftrain_launches}")
+    want = {"wavefront_camera": 3, "wavefront_bounce": 3 * (f_b - 1), "wavefront_integrate": 3, "grad": 3}
+    if any(ftrain_launches[k] != v for k, v in want.items()):
+        raise SystemExit("field training path did not launch the sorted kernels and the replay as expected")
+    if not (f_losses[0] > f_losses[1] > f_losses[2]) or not all(torch.isfinite(v).all() for v in params.values()):
+        raise SystemExit("field training path: the loss did not fall")
+    for k in build.KERNELS.values():
+        k.launches = 0
+    coeffs = field.materials.coeffs.clone().requires_grad_(True)
+    f_mats = dataclasses.replace(field.materials, coeffs=coeffs)
+    img = render_chunk_diff_fused(f_mats, field, f_cam, FIELD_SEED, 0, 0, fw, fh, f_spp, f_b, sched="mega")
+    img[..., 1].sum().backward()
+    torch.cuda.synchronize()
+    fmega_launches = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+    log(f"  fused gradient through the leaf megakernel: |d(sum Y) / d coeffs| max {float(coeffs.grad.abs().max())}, "
+        f"launches {fmega_launches}")
+    if fmega_launches.get("render_leaves_residuals") != 1 or fmega_launches.get("grad") != 1:
+        raise SystemExit("the fused gradient did not go through the leaf megakernel's residual form")
+    if not torch.isfinite(coeffs.grad).all() or float(coeffs.grad.abs().max()) <= 0:
+        raise SystemExit("the fused gradient through the leaf megakernel is not finite and nonzero")
+    del f_target, field, img
+    torch.cuda.empty_cache()
+
+
     kernels = [
         {
             "name": "render",
@@ -540,6 +909,85 @@ def main() -> int:
             "bound_by": i_by,
             "library_ms": None,
             "shape": f"{n_rays} rays, {tri16.shape[0]} tris",
+        },
+        {
+            "name": "render_leaves",
+            "route": "cuda",
+            "source": "spectral_tpu_torch/csrc/render_kernel.cu",
+            "replaces": "spectral_tpu/ops/pallas/render_kernel.py:565",
+            "launches": mega_launches["render_leaves"],
+            "max_abs_err": mega_err,
+            "mean_abs_err": mega_mean,
+            "ms": lm_ms,
+            "plain_ms": lm_plain_ms,
+            "bound_ms": lm_bound,
+            "bound_by": lm_by,
+            "library_ms": None,
+            "shape": f"{fw}x{fh} px, {f_spp} spp, {f_b} bounces, {FIELD_TRIS} tris in {f_leaf.shape[0]} leaves of "
+                     f"{k_size}, {f_live} live ray-steps, {f_entered} leaves entered",
+        },
+        {
+            "name": "render_leaves_residuals",
+            "route": "cuda",
+            "source": "spectral_tpu_torch/csrc/render_kernel.cu",
+            "replaces": "spectral_tpu/ops/pallas/render_kernel.py:2421",
+            "launches": fmega_launches["render_leaves_residuals"],
+            "max_abs_err": mega_err,
+            "mean_abs_err": mega_mean,
+            "ms": lmr_ms,
+            "plain_ms": lm_plain_ms,
+            "bound_ms": lmr_bound,
+            "bound_by": lmr_by,
+            "library_ms": None,
+            "shape": f"as render_leaves, {f_res_bytes} residual bytes",
+        },
+        {
+            "name": "wavefront_camera",
+            "route": "cuda",
+            "source": "spectral_tpu_torch/csrc/wavefront_kernel.cu",
+            "replaces": "spectral_tpu/ops/pallas/wavefront_kernel.py:188",
+            "launches": field_launches["wavefront_camera"],
+            "launches_per_train_step": ftrain_launches["wavefront_camera"] // 3,
+            "max_abs_err": sorted_err,
+            "mean_abs_err": sorted_mean,
+            "ms": wf_cam,
+            "plain_ms": p_cam,
+            "bound_ms": cam_bound,
+            "bound_by": cam_by,
+            "library_ms": None,
+            "shape": f"{f_samples} sample-rays, {FIELD_TRIS} tris, {wf_vcam} leaves entered",
+        },
+        {
+            "name": "wavefront_bounce",
+            "route": "cuda",
+            "source": "spectral_tpu_torch/csrc/wavefront_kernel.cu",
+            "replaces": "spectral_tpu/ops/pallas/wavefront_kernel.py:270",
+            "launches": field_launches["wavefront_bounce"],
+            "launches_per_train_step": ftrain_launches["wavefront_bounce"] // 3,
+            "max_abs_err": sorted_err,
+            "mean_abs_err": sorted_mean,
+            "ms": wf_bounce,
+            "plain_ms": p_bounce,
+            "bound_ms": b_bound,
+            "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"{f_b - 1} launches together: {wf_live} live ray-steps, {wf_vb} leaves entered",
+        },
+        {
+            "name": "wavefront_integrate",
+            "route": "cuda",
+            "source": "spectral_tpu_torch/csrc/wavefront_kernel.cu",
+            "replaces": "spectral_tpu/ops/pallas/wavefront_kernel.py:338",
+            "launches": field_launches["wavefront_integrate"],
+            "launches_per_train_step": ftrain_launches["wavefront_integrate"] // 3,
+            "max_abs_err": sorted_err,
+            "mean_abs_err": sorted_mean,
+            "ms": wf_int,
+            "plain_ms": p_int,
+            "bound_ms": int_bound,
+            "bound_by": int_by,
+            "library_ms": None,
+            "shape": f"{f_samples} sample-rays",
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

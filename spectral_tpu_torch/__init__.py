@@ -2,15 +2,16 @@
 
 A second package beside the JAX one (``spectral_tpu``), which stays the
 reference: hero-wavelength spectral path tracing of the three reference
-triangle scenes, rendered by a hand-written CUDA megakernel for Hopper
-(sm_90a) and written out as BMP by the same CLI. Every CUDA kernel has a
-plain PyTorch twin that runs when the tensors lie on the CPU.
+triangle scenes and the procedural fields of ``build_tri_field``, rendered
+by hand-written CUDA kernels for Hopper (sm_90a) and written out as BMP by
+the same CLI. Every CUDA kernel has a plain PyTorch twin that runs when
+the tensors lie on the CPU.
 
 Public API:
 
     from spectral_tpu_torch import (
-        build_scene, scene_camera, render_chunk, RenderManager,
-        RenderParams, parse_args,
+        build_scene, build_tri_field, scene_camera, render_chunk,
+        RenderManager, RenderParams, parse_args,
     )
 
 Differentiable rendering and inverse rendering on the fused kernels (the
@@ -41,6 +42,7 @@ from .models.scenes import (  # noqa: E402
     TRIS,
     Scene,
     build_scene,
+    build_tri_field,
     expected_sizes,
     scene_camera,
 )
@@ -61,6 +63,7 @@ __all__ = [
     "SCENE_NAMES",
     "Scene",
     "build_scene",
+    "build_tri_field",
     "expected_sizes",
     "scene_camera",
     "render_chunk",

@@ -1,5 +1,5 @@
 // Dense nearest-hit sweep shared by the intersect kernel and the render
-// megakernel.
+// megakernel, and the triangle test the leaf sweep (leaf_sweep.cuh) shares.
 //
 // One thread tests its ray against every triangle of a packed table held in
 // shared memory (row stride STRIDE floats: normal 0:3, plane offset 3,
@@ -33,26 +33,34 @@ struct NearestHit {
   bool front;  // the ray meets the triangle's front face (n . d < 0)
 };
 
+// The plane and interior tests of one packed row p: whether the ray meets
+// the triangle at a distance tt >= 0 (tt and nd = n . d out).
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ p, float ox,
+                                        float oy, float oz, float dx, float dy,
+                                        float dz, float& tt, float& nd) {
+  nd = dot3(p[0], p[1], p[2], dx, dy, dz);
+  const float no = dot3(p[0], p[1], p[2], ox, oy, oz);
+  tt = (p[3] - no) / nd;
+  bool inside = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float* g = p + 4 + 3 * k;
+    const float ao = dot3(g[0], g[1], g[2], ox, oy, oz) + p[13 + k];
+    const float ad = dot3(g[0], g[1], g[2], dx, dy, dz);
+    inside = inside && (fmaf(tt, ad, ao) >= 0.0f);
+  }
+  return inside && fabsf(nd) >= SPT_DENOM_EPS && tt >= 0.0f;
+}
+
 template <int STRIDE>
 __device__ __forceinline__ NearestHit nearest_hit(
     const float* __restrict__ tri, int n_tris, float ox, float oy, float oz,
     float dx, float dy, float dz) {
   NearestHit h{SPT_BIG, 0, false, false};
   for (int t = 0; t < n_tris; ++t) {
-    const float* p = tri + t * STRIDE;
-    const float nd = dot3(p[0], p[1], p[2], dx, dy, dz);
-    const float no = dot3(p[0], p[1], p[2], ox, oy, oz);
-    const float tt = (p[3] - no) / nd;
-    bool inside = true;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float* g = p + 4 + 3 * k;
-      const float ao = dot3(g[0], g[1], g[2], ox, oy, oz) + p[13 + k];
-      const float ad = dot3(g[0], g[1], g[2], dx, dy, dz);
-      inside = inside && (fmaf(tt, ad, ao) >= 0.0f);
-    }
+    float tt, nd;
     // strict < keeps the lower index on a tie, like the plain argmin
-    if (inside && fabsf(nd) >= SPT_DENOM_EPS && tt >= 0.0f && tt < h.t) {
+    if (tri_hit(tri + t * STRIDE, ox, oy, oz, dx, dy, dz, tt, nd) && tt < h.t) {
       h.t = tt;
       h.idx = t;
       h.hit = true;

@@ -22,10 +22,15 @@ dataclasses apart. Without ``rand`` the draws are the kernel's hash of
 uniform planes (the tests hand over the JAX package's), and ``rand_seed``
 >= 0 makes such planes from a torch generator.
 
+Scenes above DENSE_CUTOFF triangles take their residual forward through
+the leaf pack, routed as the forward render is (fast.py:46-93): the sorted
+per-bounce scheduler (ops/cuda/wavefront_kernel.py) with more than one leaf
+and ``sched="sorted"``, the default, else the leaf megakernel. The
+residuals come back in original ray order either way, and the replay never
+traces a ray.
+
 Not here yet: ``render_chunk_diff``, whose backward is the XLA wavefront
-estimator (ROADMAP A4), ``diff/geometry.py`` (A10), and scenes above
-DENSE_CUTOFF triangles, whose residual forward is the BVH sweep or the
-sorted scheduler (B5/B6).
+estimator (ROADMAP A4), and ``diff/geometry.py`` (A10).
 """
 
 from __future__ import annotations
@@ -36,30 +41,36 @@ import torch
 
 from ..models.camera import camera_vector
 from ..ops.cuda.grad_kernel import render_grads
-from ..ops.cuda.render_kernel import DENSE_CUTOFF, n_uniforms, pack_scene, render_rays_residuals
+from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_auto, render_rays_residuals
+from ..ops.cuda.wavefront_kernel import render_rays_wavefront
 from .spectral_reparam import reparam_hero
 
 
-def _residual_forward(cam_vec, key_seed, tri, mat, tab, px, py, spp, bounces, image_width, rand):
-    """(xyz, hero, n_valid, power, matres) of the dense residual megakernel
-    (fast.py:46-93, its dense branch)."""
-    if tri.shape[0] > DENSE_CUTOFF:
-        raise NotImplementedError(
-            f"{tri.shape[0]} triangles: the residual forward above {DENSE_CUTOFF} "
-            "is the BVH sweep or the sorted scheduler, not ported yet (ROADMAP B5/B6)"
+def _residual_forward(cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, image_width, rand,
+                      sched="sorted"):
+    """(xyz, hero, n_valid, power, matres), routed as the forward render:
+    the sorted scheduler for a multi-leaf pack under ``sched="sorted"``,
+    else the residual megakernel (dense, or the leaf form with a leaf
+    pack)."""
+    if sched not in SCHEDULERS:
+        raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
+    if leaf is not None and leaf.shape[0] > 1 and sched == "sorted":
+        return render_rays_wavefront(
+            cam_vec, int(key_seed), tri, mat, tab, leaf, px, py, spp, bounces, image_width, rand,
+            save_residuals=True,
         )
     return render_rays_residuals(
-        cam_vec, int(key_seed), tri, mat, tab, px, py, spp, bounces, image_width, rand
+        cam_vec, int(key_seed), tri, mat, tab, px, py, spp, bounces, image_width, rand, leaf_pack=leaf
     )
 
 
-def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=None):
+def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=None, sched="sorted"):
     """xyz [N, 3] and the residuals (mat, tab, hero, n_valid, power, matres)
     the backward replays."""
-    tri, mat, tab = pack_scene(dataclasses.replace(scene, materials=materials))
+    cam_vec = camera_vector(cam).to(scene.normal.device)
+    tri, mat, tab, leaf = pack_scene_auto(dataclasses.replace(scene, materials=materials), cam_vec)
     xyz, hero, n_valid, power, matres = _residual_forward(
-        camera_vector(cam).to(tri.device), key_seed, tri, mat, tab, px, py, spp, bounces,
-        cam.image_width, rand,
+        cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand, sched,
     )
     return xyz, (mat, tab, hero, n_valid, power, matres)
 
@@ -82,13 +93,13 @@ def _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand):
 
 def _fused_fwd_impl(
     materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces,
-    rand_seed=-1, rand=None,
+    rand_seed=-1, rand=None, sched="sorted",
 ):
     """Accumulated XYZ [height, width, 3] of the chunk and its residuals, in
-    row-major pixel order (dense scenes are one leaf: no swizzle, and the
-    port pads nothing)."""
+    row-major pixel order (the port neither swizzles pixels into blocks nor
+    pads them)."""
     px, py, rand = _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand)
-    xyz, residuals = _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand)
+    xyz, residuals = _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand, sched)
     return xyz.reshape(height, width, 3), residuals
 
 
@@ -106,6 +117,7 @@ class _Spec:
     bounces: int
     rand: torch.Tensor | None
     reparam_glass: int | None
+    sched: str
 
 
 class _FusedRays(torch.autograd.Function):
@@ -117,7 +129,8 @@ class _FusedRays(torch.autograd.Function):
         )
         scene = dataclasses.replace(spec.scene, background_spd=background_spd)
         xyz, residuals = _rays_fwd_impl(
-            mats, scene, spec.cam, spec.px, spec.py, spec.key_seed, spec.spp, spec.bounces, spec.rand
+            mats, scene, spec.cam, spec.px, spec.py, spec.key_seed, spec.spp, spec.bounces, spec.rand,
+            spec.sched,
         )
         ctx.spec = spec
         ctx.save_for_backward(sellmeier_b, sellmeier_c, *residuals)
@@ -146,13 +159,15 @@ class _FusedRays(torch.autograd.Function):
 
 def render_rays_diff_fused(
     materials, scene, cam, px, py, key_seed, spp, bounces, reparam_glass=None, rand=None,
+    sched="sorted",
 ):
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N];
     differentiable w.r.t. the material coefficients and emission powers,
     ``scene.background_spd`` and, with ``reparam_glass`` (a material row of
     a dispersive dielectric), that glass's Sellmeier B/C. Any N: nothing
-    is padded."""
-    spec = _Spec(materials, scene, cam, px, py, int(key_seed), spp, bounces, rand, reparam_glass)
+    is padded. ``sched`` picks the large-scene forward ("sorted" or
+    "mega"), as in render_chunk."""
+    spec = _Spec(materials, scene, cam, px, py, int(key_seed), spp, bounces, rand, reparam_glass, sched)
     return _FusedRays.apply(
         materials.coeffs, materials.emission_power, materials.sellmeier_b,
         materials.sellmeier_c, scene.background_spd, spec,
@@ -161,13 +176,15 @@ def render_rays_diff_fused(
 
 def render_chunk_diff_fused(
     materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces,
-    rand_seed=-1, reparam_glass=None, rand=None,
+    rand_seed=-1, reparam_glass=None, rand=None, sched="sorted",
 ):
     """Accumulated XYZ [height, width, 3] of a chunk through the fused
-    kernels, in one launch of each; the backward replays the stored
-    residuals and never traces a ray again."""
+    kernels; the backward replays the stored residuals and never traces a
+    ray again."""
     px, py, rand = _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand)
-    xyz = render_rays_diff_fused(materials, scene, cam, px, py, key_seed, spp, bounces, reparam_glass, rand)
+    xyz = render_rays_diff_fused(
+        materials, scene, cam, px, py, key_seed, spp, bounces, reparam_glass, rand, sched
+    )
     return xyz.reshape(height, width, 3)
 
 

@@ -34,6 +34,10 @@ TRIS = 2
 
 SCENE_NAMES = {CORNELL: "cornell", PRISM: "prism", TRIS: "tris"}
 
+# material row of the BK7 dielectric in build_tri_field(glass=True)
+# (builder order: white, red, green, metal, light, then the preset)
+FIELD_GLASS_MAT = 5
+
 _TRI_FIELDS = (
     "v0", "v1", "v2", "normal", "d", "mat_index", "edge_g", "edge_c",
     "bbox_min", "bbox_max",
@@ -222,10 +226,9 @@ def scene_camera(
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _host_scene(scene_id: int) -> dict:
-    """The scene's arrays as numpy, built once per process."""
-    soup, mats = _BUILDERS[scene_id]()
+def _scene_arrays(soup: TriSoup, mats: Materials) -> dict:
+    """The numpy arrays of a finished soup and its materials, black
+    background."""
     d = dict(finalize(soup))
     d["materials"] = {
         f.name: getattr(mats, f.name).numpy() for f in dataclasses.fields(Materials)
@@ -236,6 +239,12 @@ def _host_scene(scene_id: int) -> dict:
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def _host_scene(scene_id: int) -> dict:
+    """The scene's arrays as numpy, built once per process."""
+    return _scene_arrays(*_BUILDERS[scene_id]())
+
+
 def build_scene(scene_id: int, device: torch.device | str = "cuda") -> Scene:
     return scene_from_numpy(_host_scene(scene_id), device)
 
@@ -243,3 +252,52 @@ def build_scene(scene_id: int, device: torch.device | str = "cuda") -> Scene:
 def expected_sizes(scene_id: int) -> tuple[int, int]:
     """(num_tris, num_materials) golden counts (scene.cu:228-257)."""
     return {CORNELL: (42, 7), PRISM: (20, 3), TRIS: (42, 9)}[scene_id]
+
+
+@functools.lru_cache(maxsize=4)
+def _host_tri_field(n_tris: int, seed: int, glass: bool) -> dict:
+    rng = np.random.RandomState(seed)
+    mb = MaterialBuilder()
+    white = mb.lambertian((0.73, 0.73, 0.73))
+    red = mb.lambertian((0.65, 0.05, 0.05))
+    green = mb.lambertian((0.12, 0.45, 0.15))
+    metal = mb.metallic((0.8, 0.85, 0.88), 0.0)
+    light = mb.emissive((1.0, 1.0, 1.0), 7.0)
+
+    soup = TriSoup()
+    _cornell_walls(soup, (white, white, white, green, red), light)
+
+    box_mats = (white, red, green, metal)
+    if glass:
+        bk7 = mb.dielectric_preset("BK7")
+        assert bk7 == FIELD_GLASS_MAT
+        box_mats = (white, bk7, green, metal)
+    n_boxes = max(0, -(-(n_tris - len(soup)) // 12))
+    grid = int(math.ceil(math.sqrt(n_boxes)))
+    cell = 520.0 / grid
+    i = 0
+    for gz in range(grid):
+        for gx in range(grid):
+            if i >= n_boxes:
+                break
+            w = cell * (0.25 + 0.35 * rng.rand())
+            h = 10.0 + 120.0 * rng.rand() ** 2
+            x = 15.0 + gx * cell + (cell - w) * rng.rand()
+            z = 15.0 + gz * cell + (cell - w) * rng.rand()
+            s = len(soup)
+            soup.box((x, 0.0, z), (x + w, h, z + w), box_mats[i % 4])
+            soup.rotate(s, math.radians(rng.rand() * 90.0), "Y", pivot=soup.slice_bbox_center(s, len(soup)))
+            i += 1
+    return _scene_arrays(soup, mb.build())
+
+
+def build_tri_field(
+    n_tris: int = 10008, seed: int = 0, glass: bool = False, device: torch.device | str = "cuda"
+) -> Scene:
+    """The procedural large scene (spectral_tpu/models/scenes.py:218-272):
+    the Cornell shell and ceiling light plus a jittered grid of small
+    rotated boxes, until there are at least ``n_tris`` triangles.
+    Deterministic in ``seed``. ``glass``: every 4th box is BK7 (material
+    row ``FIELD_GLASS_MAT``) instead of red. Above DENSE_CUTOFF triangles
+    it renders through the leaf sweep (ops/cuda/render_kernel.py)."""
+    return scene_from_numpy(_host_tri_field(int(n_tris), int(seed), bool(glass)), device)

@@ -156,8 +156,34 @@ RENDER_RESIDUALS = Kernel(
     "render_residuals", "render_kernel.cu", "render_residuals_launch",
     [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
 )
+RENDER_LEAVES = Kernel(
+    "render_leaves", "render_kernel.cu", "render_leaves_launch",
+    [P, ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P],
+)
+RENDER_LEAVES_RESIDUALS = Kernel(
+    "render_leaves_residuals", "render_kernel.cu", "render_leaves_residuals_launch",
+    [P, ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P],
+)
 GRAD = Kernel(
     "grad", "grad_kernel.cu", "grad_launch",
     [P, I, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
 )
-KERNELS = {k.name: k for k in (INTERSECT, RENDER, RENDER_RESIDUALS, GRAD)}
+WAVEFRONT_CAMERA = Kernel(
+    "wavefront_camera", "wavefront_kernel.cu", "wavefront_camera_launch",
+    [P, ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P],
+)
+WAVEFRONT_BOUNCE = Kernel(
+    "wavefront_bounce", "wavefront_kernel.cu", "wavefront_bounce_launch",
+    [ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, I, P, P, P, P, P, P, P],
+)
+WAVEFRONT_INTEGRATE = Kernel(
+    "wavefront_integrate", "wavefront_kernel.cu", "wavefront_integrate_launch",
+    [P, P, P, I, I, P, P, P, P, P],
+)
+KERNELS = {
+    k.name: k
+    for k in (
+        INTERSECT, RENDER, RENDER_RESIDUALS, RENDER_LEAVES, RENDER_LEAVES_RESIDUALS, GRAD,
+        WAVEFRONT_CAMERA, WAVEFRONT_BOUNCE, WAVEFRONT_INTEGRATE,
+    )
+}

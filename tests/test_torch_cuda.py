@@ -13,6 +13,10 @@ XYZ within the render tolerance of tests/test_torch_render.py. The replay
 kernel sums its gradients over rays in another order than the plain
 version: per column within 2e-4 of the column's largest value, as in
 tests/test_torch_grad.py, and bit-identical between two of its launches.
+The large-scene kernels (the leaf megakernel, forward and residual, and
+the sorted scheduler's three kernels) run on build_tri_field(520, seed=3,
+glass=True) against their plain versions, and against each other: the
+two schedulers share one source of path arithmetic and give equal paths.
 """
 
 from __future__ import annotations
@@ -23,17 +27,21 @@ import torch
 
 from spectral_tpu_torch.diff import render_chunk_diff_fused
 from spectral_tpu_torch.models.camera import camera_vector
-from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, scene_camera
+from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, build_tri_field, scene_camera
 from spectral_tpu_torch.ops.cuda import build
 from spectral_tpu_torch.ops.cuda.grad_kernel import render_grads, render_grads_reference
 from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     n_uniforms,
+    order_leaves_near_to_far,
     pack_scene,
+    pack_scene_auto,
+    pack_scene_leaves,
     render_rays,
     render_rays_reference,
     render_rays_residuals,
 )
+from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront, render_rays_wavefront_reference
 from spectral_tpu_torch.parallel import train_step_fused, trainable_params
 from spectral_tpu_torch.ops.intersect import nearest_hit
 
@@ -166,5 +174,118 @@ def test_fused_train_step_on_card(cuda_device):
         params, loss = train_step_fused(params, scene, cam, target, seed, spp, bounces, lr=lr)
         losses.append(float(loss))
     assert (build.RENDER_RESIDUALS.launches, build.GRAD.launches) == (before[0] + 3, before[1] + 3)
+    assert losses[0] > losses[1] > losses[2], losses
+    assert all(torch.isfinite(v).all() for v in params.values())
+
+
+def _garbage(spp, bounces, n, dev):
+    """Residual buffers filled with 7s: the kernels must write every element."""
+    return (
+        torch.full((spp, n), 7.0, device=dev), torch.full((spp, n), 7.0, device=dev),
+        torch.full((spp, 7, n), 7.0, device=dev), torch.full((spp, bounces, n), 7, dtype=torch.int32, device=dev),
+    )
+
+
+def _field_case(dev, injected, w=64, h=32, spp=4, bounces=5):
+    scene = build_tri_field(520, seed=3, glass=True, device=dev)
+    cam = camera_vector(scene_camera(CORNELL, w, h, dev))
+    tri, mat, tab, leaf = pack_scene_auto(scene, cam)
+    px = (torch.arange(w * h, device=dev) % w).float()
+    py = (torch.arange(w * h, device=dev) // w).float()
+    rand = None
+    if injected:
+        planes = np.random.default_rng(11).uniform(size=(spp, n_uniforms(bounces), w * h))
+        rand = torch.from_numpy(planes.astype(np.float32)).to(dev)
+    return (cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand), leaf
+
+
+def _assert_residuals_equal(got, ref):
+    """xyz within the render tolerance, hero, n_valid and matres equal,
+    power at rtol 2e-4 / atol 1e-5."""
+    xyz, *res = got
+    ref_xyz, *ref_res = ref
+    for k in (0, 1, 3):
+        assert torch.equal(res[k], ref_res[k]), k
+    torch.testing.assert_close(res[2], ref_res[2], rtol=2e-4, atol=1e-5)
+    assert ((xyz - ref_xyz).abs() <= 2e-3 + 1e-5 * ref_xyz.abs()).all()
+    assert (xyz - ref_xyz).abs().mean().item() <= 2e-5
+    assert ref_xyz.sum().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("injected", (True, False), ids=("planes", "hash"))
+def test_leaf_megakernel_equals_plain(cuda_device, injected):
+    args, leaf = _field_case(cuda_device, injected)
+    n, spp, bounces = args[5].numel(), args[7], args[8]
+    counts = [torch.zeros(n, dtype=torch.int32, device=cuda_device) for _ in range(4)]
+    before = (build.RENDER_LEAVES.launches, build.RENDER_LEAVES_RESIDUALS.launches)
+    fwd = render_rays(*args, counts[0], leaf_pack=leaf, visits=counts[1])
+    got = render_rays_residuals(*args, out=_garbage(spp, bounces, n, cuda_device), leaf_pack=leaf)
+    torch.cuda.synchronize()
+    assert (build.RENDER_LEAVES.launches, build.RENDER_LEAVES_RESIDUALS.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got[0], fwd)
+    ref = render_rays_reference(*args, counts[2], residuals=True, leaf_pack=leaf, visits=counts[3])
+    assert torch.equal(counts[0], counts[2]) and torch.equal(counts[1], counts[3])
+    _assert_residuals_equal(got, ref)
+    assert (got[4] == 0).any() and (got[4] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("injected", (True, False), ids=("planes", "hash"))
+def test_sorted_scheduler_equals_plain_and_megakernel(cuda_device, injected):
+    args, leaf = _field_case(cuda_device, injected)
+    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    n = px.numel()
+    wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
+    counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+    kernels = (build.WAVEFRONT_CAMERA, build.WAVEFRONT_BOUNCE, build.WAVEFRONT_INTEGRATE)
+    before = [k.launches for k in kernels]
+    got = render_rays_wavefront(
+        *wf_args, save_residuals=True, steps=counts[0], visits=counts[1], out=_garbage(spp, bounces, n, cuda_device)
+    )
+    fwd = render_rays_wavefront(*wf_args)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2 * (bounces - 1), 2]
+    assert torch.equal(got[0], fwd)
+    ref = render_rays_wavefront_reference(*wf_args, save_residuals=True, steps=counts[2], visits=counts[3])
+    assert torch.equal(counts[0], counts[2]) and torch.equal(counts[1], counts[3])
+    _assert_residuals_equal(got, ref)
+    # one source of path arithmetic: the same paths as the leaf megakernel
+    mega = render_rays_residuals(*args, leaf_pack=leaf)
+    for a, b in zip(got, mega):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_leaf_megakernel_on_cornell_equals_dense(cuda_device):
+    w = h = 32
+    spp, bounces = 4, 5
+    scene = build_scene(CORNELL, cuda_device)
+    cam = camera_vector(scene_camera(CORNELL, w, h, cuda_device))
+    px = (torch.arange(w * h, device=cuda_device) % w).float()
+    py = (torch.arange(w * h, device=cuda_device) // w).float()
+    tri, mat, tab, leaf = pack_scene_leaves(scene, leaf_size=8)
+    tri, leaf = order_leaves_near_to_far(tri, leaf, cam[0:3])
+    args = (cam, 1984, tri, mat, tab, px, py, spp, bounces, w, None)
+    dense = render_rays_residuals(cam, 1984, *pack_scene(scene), px, py, spp, bounces, w, None)
+    _assert_residuals_equal(render_rays_residuals(*args, leaf_pack=leaf), dense)
+
+
+@pytest.mark.cuda
+def test_field_train_step_on_card(cuda_device):
+    scene = build_tri_field(520, seed=3, device=cuda_device)
+    w, h, spp, bounces, seed, lr = 32, 16, 4, 4, 7, 1e-13 * 256 / (32 * 16)
+    cam = scene_camera(CORNELL, w, h, cuda_device)
+    with torch.no_grad():
+        target = render_chunk_diff_fused(scene.materials, scene, cam, seed, 0, 0, w, h, spp, bounces) / spp
+    params = {k: v.clone() for k, v in trainable_params(scene).items() if k in ("coeffs", "emission_power")}
+    params["coeffs"][0, 2] += 1.5  # the white of walls and boxes
+    kernels = (build.WAVEFRONT_CAMERA, build.WAVEFRONT_BOUNCE, build.WAVEFRONT_INTEGRATE, build.GRAD)
+    before = [k.launches for k in kernels]
+    losses = []
+    for _ in range(3):
+        params, loss = train_step_fused(params, scene, cam, target, seed, spp, bounces, lr=lr)
+        losses.append(float(loss))
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3 * (bounces - 1), 3, 3]
     assert losses[0] > losses[1] > losses[2], losses
     assert all(torch.isfinite(v).all() for v in params.values())

@@ -121,7 +121,7 @@ def test_render_rays_checks_inputs():
     px = torch.zeros(16)
     with pytest.raises(ValueError):
         render_rays(cam, 0, tri, mat, tab, px, px, 2, 3, 4, rand=torch.zeros(2, 10, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pack_scene_leaves"):
         render_rays(cam, 0, torch.zeros(129, 17), mat, tab, px, px, 2, 3, 4)
 
 
