@@ -5,22 +5,26 @@
 
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel from csrc/ with nvcc, all sources at once, and
-   time the render kernel's first launch in this process (1 pixel) beside
-   a second one;
+2. build every CUDA kernel from csrc/ with nvcc, all sources at once,
+   check with ``cuobjdump -sass`` that the dense render kernels read the
+   scene with 128-bit shared loads, and time the render kernel's first
+   launch in this process (1 pixel) beside a second one;
 3. each kernel against its plain PyTorch version on the card, at 64x64,
    8 spp, 5 bounces on each scene, with injected uniform planes and with
-   the hash draws: the render megakernel; its residual form (residual
-   buffers filled with garbage first; integer residuals, hero and n_valid
-   equal, power and xyz within tolerance, xyz equal to the forward
-   kernel's); the replay kernel on those residuals (background gradients
-   on, Sellmeier scalars on for PRISM; two launches bit-identical);
+   the hash draws: the render megakernel and its residual form (residual
+   buffers filled with garbage first), each bit-equal to the plain version
+   in xyz, live ray-steps and every residual, and the residual
+   form's xyz equal to the forward kernel's; the replay kernel on those
+   residuals (background gradients on, Sellmeier scalars on for PRISM; two
+   launches bit-identical);
 4. each kernel at its path's shapes, timed beside its plain version and the
    card's bound, and held against the plain version there too: the render
    megakernel on the default Cornell frame (600x600, 500 spp, 10 bounces,
-   hash draws; live ray-steps equal), the intersect kernel on random rays
-   against CORNELL at that frame's ray count, the residual and replay
+   hash draws; bit-equal), the intersect kernel on random rays against
+   CORNELL at that frame's ray count, the residual (bit-equal) and replay
    kernels on the training frame (Cornell 1920x1080, 16 spp, 8 bounces);
+   the lane efficiency of the render and residual kernels there, live
+   ray-steps / (32 x warp sweeps);
 5. the main path, once, as a user runs it: ``python -m
    spectral_tpu_torch.main --save`` with the default Cornell box into a
    temporary directory; the megakernel's launch count must equal the chunk
@@ -64,6 +68,15 @@ of the repository.
 ``python3 chip_smoke.py --leaf-sizes`` instead times both large-scene
 schedulers on the 10k and 200k fields at leaf sizes 8 to 128 (the sweep
 behind ops/cuda/render_kernel.py::LEAF_SIZE) and prints one JSON line.
+
+``python3 chip_smoke.py --ab BASE [OTHER ...]`` times the render kernels
+(B2 at the default frame, B3 at the training frame, B5 and the sorted
+kernels at the 10k field frame) of other checkouts of the port against
+this one's, one process each, in the order BASE, this, OTHER..., this,
+BASE: a checkout is any directory holding a ``spectral_tpu_torch``
+package, such as an unpacked parent commit (``git archive``) or a copy
+with one compiled choice changed. Every output must be bit-equal to this
+checkout's. ``--time ROOT`` is one such process.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ T_START = time.perf_counter()
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
@@ -155,70 +169,117 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_render(name: str, kernel, plain, args) -> tuple[float, float, int, float]:
-    """One render through the kernel and through its plain version on the
-    same inputs: the live ray-step counts must be equal and the XYZ within
-    the render tolerance. Returns max abs, mean abs, live ray-steps and the
-    plain version's wall time in ms."""
-    steps = torch.zeros(args[5].numel(), dtype=torch.int32, device=args[5].device)
+def shared_loads(lib) -> dict:
+    """The shared-memory load instructions of each render_kernel<kSaveResiduals,
+    kLeaves> in a built library, by width, from ``cuobjdump -sass``."""
+    from spectral_tpu_torch.ops.cuda.build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    loads = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        form = re.search(r"render_kernelILb(\d)ELb(\d)E", fn)
+        if form:
+            kinds = [m.group(1) or ".32" for m in re.finditer(r"\bLDS((?:\.\w+)*)", body)]
+            loads[f"<{form.group(1)},{form.group(2)}>"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+    return loads
+
+
+def warp_buffer(n: int, dev):
+    """An int32 [ceil(n / 32)] buffer of warp sweeps, filled with -1."""
+    return torch.full((-(-n // 32),), -1, dtype=torch.int32, device=dev)
+
+
+def lane_efficiency(name: str, steps, warps, persistent: bool) -> float:
+    """Live ray-steps over the lane-sweeps of the warps that ran them. A
+    regenerating warp of 32 consecutive rays sweeps as often as its busiest
+    lane has live ray-steps; a persistent grid's warps run at most 32 live
+    ray-steps a sweep."""
+    live = steps.to(torch.int64)
+    sweeps = int(warps.to(torch.int64).sum())
+    if persistent:
+        ok = int(warps.min()) >= 0 and int(live.sum()) <= 32 * sweeps
+    else:
+        busiest = torch.nn.functional.pad(live, (0, 32 * warps.numel() - live.numel())).reshape(-1, 32).amax(1)
+        ok = torch.equal(warps.to(torch.int64), busiest)
+    if not ok:
+        raise SystemExit(f"{name}: the warp sweeps do not fit the kernel's loop")
+    return int(live.sum()) / (32 * sweeps)
+
+
+def check_render(name: str, args) -> tuple[float, float, int, float, float]:
+    """One render through the dense kernel and through its plain version on
+    the same inputs: the XYZ and the live ray-step counts must be equal (one
+    source of float32 operations, in one order). Returns max abs, mean abs,
+    live ray-steps, the plain version's wall time in ms and the kernel's
+    lane efficiency."""
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_rays, render_rays_reference
+
+    n, dev = args[5].numel(), args[5].device
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
     ref_steps = torch.zeros_like(steps)
-    got = kernel(*args, steps)
+    warps = warp_buffer(n, dev)
+    got = render_rays(*args, steps, warp_steps=warps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = plain(*args, ref_steps)
+    ref = render_rays_reference(*args, ref_steps)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     err = (got - ref).abs()
-    bad = int((err > ATOL + RTOL * ref.abs()).sum())
     mx, mean = float(err.max()), float(err.mean())
-    log(f"  {name}: max abs {mx:.3g}, mean abs {mean:.3g}, values off {bad}")
+    live = int(steps.to(torch.int64).sum())
+    eff = lane_efficiency(f"render {name}", steps, warps, persistent=True)
+    log(f"  {name}: max abs {mx:.3g}, mean abs {mean:.3g}, lane efficiency {eff:.4f}")
     if not torch.equal(steps, ref_steps):
         raise SystemExit(f"render {name}: live ray-steps differ from the plain version")
     if float(ref.sum()) <= 0:
         raise SystemExit(f"render {name}: black image")
-    if bad or mean > MEAN_TOL or not torch.isfinite(got).all():
-        raise SystemExit(f"render {name}: kernel disagrees with its plain version")
-    return mx, mean, int(steps.to(torch.int64).sum()), plain_ms
+    if not torch.equal(got, ref) or not torch.isfinite(got).all():
+        raise SystemExit(f"render {name}: kernel differs from its plain version or is not finite")
+    return mx, mean, live, plain_ms, eff
 
 
-def check_residuals(name: str, args, with_steps: bool = False):
-    """The residual kernel (into buffers filled with garbage) against its
-    plain version and against the forward kernel. Returns (residuals, max
+def check_residuals(name: str, args):
+    """The dense residual kernel (into buffers filled with garbage) against
+    its plain version and against the forward kernel: xyz, every residual
+    and the live ray-steps equal. Returns (residuals, max
     abs error of xyz and power, mean abs error of xyz, plain ms, live
-    ray-steps)."""
+    ray-steps, lane efficiency)."""
     from spectral_tpu_torch.ops.cuda.render_kernel import (
         render_rays, render_rays_reference, render_rays_residuals,
     )
 
     n, spp, bounces = args[5].numel(), args[7], args[8]
     dev = args[5].device
-    steps = torch.zeros(n, dtype=torch.int32, device=dev) if with_steps else None
-    xyz, *res = render_rays_residuals(*args, steps, out=garbage(spp, bounces, n, dev))
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    ref_steps = torch.zeros_like(steps)
+    warps = warp_buffer(n, dev)
+    xyz, *res = render_rays_residuals(*args, steps, out=garbage(spp, bounces, n, dev), warp_steps=warps)
     fwd = render_rays(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref_steps = torch.zeros_like(steps) if with_steps else None
     ref_xyz, *ref = render_rays_reference(*args, ref_steps, residuals=True)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    for k, what in ((0, "hero"), (1, "n_valid"), (3, "matres")):
+    for k, what in ((0, "hero"), (1, "n_valid"), (2, "power"), (3, "matres")):
         if not torch.equal(res[k], ref[k]):
             raise SystemExit(f"residuals {name}: {what} differs from the plain version")
     if not torch.equal(xyz, fwd):
         raise SystemExit(f"residuals {name}: xyz differs from the forward kernel's")
-    if with_steps and not torch.equal(steps, ref_steps):
+    if not torch.equal(steps, ref_steps):
         raise SystemExit(f"residuals {name}: live ray-steps differ from the plain version")
     p_err = (res[2] - ref[2]).abs()
     x_err = (xyz - ref_xyz).abs()
-    bad = int((p_err > POWER_ATOL + POWER_RTOL * ref[2].abs()).sum()) + int((x_err > ATOL + RTOL * ref_xyz.abs()).sum())
     mx, mean = max(float(p_err.max()), float(x_err.max())), float(x_err.mean())
     ended = int((res[3] == 0).sum())
-    log(f"  {name}: xyz/power max abs {mx:.3g}, xyz mean abs {mean:.3g}, values off {bad}, "
+    live = int(steps.to(torch.int64).sum())
+    eff = lane_efficiency(f"residuals {name}", steps, warps, persistent=False)
+    log(f"  {name}: xyz/power max abs {mx:.3g}, xyz mean abs {mean:.3g}, lane efficiency {eff:.4f}, "
         f"{ended} matres entries after a path ended")
-    if bad or mean > MEAN_TOL or not torch.isfinite(xyz).all() or float(ref_xyz.sum()) <= 0:
-        raise SystemExit(f"residuals {name}: kernel disagrees with its plain version")
-    live = int(steps.to(torch.int64).sum()) if with_steps else 0
-    return res, mx, mean, plain_ms, live
+    if not torch.equal(xyz, ref_xyz) or not torch.isfinite(xyz).all() or float(ref_xyz.sum()) <= 0:
+        raise SystemExit(f"residuals {name}: kernel differs from its plain version")
+    return res, mx, mean, plain_ms, live, eff
 
 
 def check_replay(name: str, mat, tab, g, res, spp: int, bounces: int, sell: bool):
@@ -434,10 +495,111 @@ def leaf_size_sweep(dev) -> int:
     return 0
 
 
+def time_kernels(root: str) -> int:
+    """``--time ROOT``: build the port found at ROOT and time its render
+    kernels at their paths' shapes, warmed, with CUDA events; print one JSON
+    line with each kernel's ms, a digest of its outputs, the lane
+    efficiency (where the port reports warp sweeps) and ptxas's lines for
+    the render kernels."""
+    import hashlib
+    import inspect
+
+    sys.path.insert(0, os.path.abspath(root))
+    import spectral_tpu_torch
+    from spectral_tpu_torch.models.camera import camera_vector
+    from spectral_tpu_torch.models.scenes import CORNELL, build_scene, build_tri_field, scene_camera
+    from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.ops.cuda import render_kernel as rk
+    from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
+    from spectral_tpu_torch.runtime.render_manager import chunk_seed
+
+    if not spectral_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"--time {root}: imported {spectral_tpu_torch.__file__} instead")
+    dev = torch.device("cuda")
+    build.build_all(build.KERNELS.values())
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in build.RENDER.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    tri, mat, tab = rk.pack_scene(build_scene(CORNELL, dev))
+
+    def frame(w, h, spp, bounces, seed):
+        cam = camera_vector(scene_camera(CORNELL, w, h, dev))
+        px = (torch.arange(w * h, device=dev) % w).float()
+        py = (torch.arange(w * h, device=dev) // w).float()
+        return (cam, seed, tri, mat, tab, px, py, spp, bounces, w, None)
+
+    a2 = frame(600, 600, 500, 10, chunk_seed(0, 0, 600))
+    a3 = frame(TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_SEED)
+    fa, leaf = field_args(build_tri_field(FIELD_TRIS, 0, device=dev), FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
+                          None, chunk_seed(0, 0, FIELD_W))
+    runs = {
+        "render": (a2, {}, rk.render_rays, 2),
+        "render_residuals": (a3, {}, rk.render_rays_residuals, 5),
+        "render_leaves": (fa, {"leaf_pack": leaf}, rk.render_rays, 5),
+        "render_leaves_residuals": (fa, {"leaf_pack": leaf}, rk.render_rays_residuals, 5),
+    }
+    ms, digest, lanes = {}, {}, {}
+    warps = "warp_steps" in inspect.signature(rk.render_rays).parameters
+
+    def sha(tensors) -> str:
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for name, (args, kw, fn, reps) in runs.items():
+        steps = torch.zeros(args[5].numel(), dtype=torch.int32, device=dev)
+        extra = {"warp_steps": warp_buffer(args[5].numel(), dev)} if warps and not kw else {}
+        out = fn(*args, steps, **kw, **extra)
+        out = out if isinstance(out, tuple) else (out,)
+        digest[name] = sha((*out, steps))
+        if extra:
+            live = int(steps.to(torch.int64).sum())
+            lanes[name] = live / (32 * int(extra["warp_steps"].to(torch.int64).sum()))
+        ms[name] = cuda_ms(lambda: fn(*args, **kw), reps)
+    wf = (*fa[:5], leaf, *fa[5:])
+    digest["sorted"] = sha(render_rays_wavefront(*wf, save_residuals=True))
+    cam_ms, bounce_ms, int_ms, glue_ms, *_ = timed_sorted(fa, leaf, False, reps=3)
+    ms.update(wavefront_camera=cam_ms, wavefront_bounce=bounce_ms, wavefront_integrate=int_ms, sort_and_gather=glue_ms)
+    print(json.dumps({"root": os.path.abspath(root), "ms": ms, "digest": digest, "lane_efficiency": lanes,
+                      "ptxas": ptxas}), flush=True)
+    return 0
+
+
+def ab_runs(roots: list[str]) -> int:
+    """``--ab BASE [OTHER ...]``: ``--time`` of each checkout, one process
+    each, in the order BASE, this, OTHER..., this, BASE; one JSON line with
+    every run and whether its outputs are bit-equal to this checkout's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = [os.path.abspath(r) for r in roots]
+    order = [roots[0], here, *roots[1:], here, roots[0]]
+    smi = smi_line()
+    log(smi)
+    runs = []
+    for root in order:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"--time {root} failed")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        log(json.dumps({k: runs[-1][k] for k in ("root", "ms", "lane_efficiency")}))
+    ref = runs[1]["digest"]
+    for r in runs:
+        r["bit_equal"] = {k: r["digest"].get(k) == v for k, v in ref.items()}
+    print(json.dumps({"ab": runs, "device": smi}), flush=True)
+    if not all(all(r["bit_equal"].values()) for r in runs):
+        raise SystemExit("--ab: a checkout's outputs differ from this one's")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--time"] and len(sys.argv) == 3:
+        return time_kernels(sys.argv[2])
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:
+        return ab_runs(sys.argv[2:])
     try:
         from spectral_tpu_torch import main as cli
         from spectral_tpu_torch.diff import render_rays_diff_fused
@@ -482,6 +644,11 @@ def main() -> int:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {k.source.name}: {line.strip()}")
+    # the dense sweep reads each triangle as four 128-bit shared loads
+    loads = shared_loads(build.RENDER.library())
+    log(f"  render_kernel<kSaveResiduals,kLeaves> shared loads by width (cuobjdump -sass): {loads}")
+    if not all(any("128" in k for k in loads.get(form, {})) for form in ("<0,0>", "<1,0>")):
+        raise SystemExit("the dense render kernels have no 128-bit shared loads")
     cornell = build_scene(CORNELL, dev)
     tri, mat, tab = pack_scene(cornell)
     cam1 = camera_vector(scene_camera(CORNELL, 1, 1, dev))
@@ -513,9 +680,9 @@ def main() -> int:
         for mode, rand in (("planes", torch.from_numpy(planes).to(dev)), ("hash", None)):
             seed = chunk_seed(0, 0, w) + sid
             args = (cam, seed, s_tri, s_mat, s_tab, px, py, c_spp, c_bounces, w, rand)
-            mx, mean, _, _ = check_render(f"{sname}/{mode}", render_rays, render_rays_reference, args)
+            mx, mean, *_ = check_render(f"{sname}/{mode}", args)
             render_err, render_mean = max(render_err, mx), max(render_mean, mean)
-            res, mx, mean, _, _ = check_residuals(f"{sname}/{mode} residuals", args)
+            res, mx, mean, *_ = check_residuals(f"{sname}/{mode} residuals", args)
             res_err, res_mean = max(res_err, mx), max(res_mean, mean)
             g = torch.from_numpy(rng.normal(size=(w * h, 3)).astype(np.float32)).to(dev)
             mx, rel, _ = check_replay(f"{sname}/{mode} replay", s_mat, s_tab, g, res, c_spp, c_bounces, sid == PRISM)
@@ -532,7 +699,7 @@ def main() -> int:
     seed = chunk_seed(0, 0, width)
     args = (cam, seed, tri, mat, tab, fpx, fpy, spp, bounces, width, None)
     log(f"render megakernel vs plain, Cornell {width}x{height}, {spp} spp, {bounces} bounces, hash draws:")
-    mx, mean, live, render_plain_ms = check_render("cornell/full", render_rays, render_rays_reference, args)
+    mx, mean, live, render_plain_ms, render_eff = check_render("cornell/full", args)
     render_ms = cuda_ms(lambda: render_rays(*args), 3)
     render_err, render_mean = max(render_err, mx), max(render_mean, mean)
     n_tris = tri.shape[0]
@@ -541,7 +708,7 @@ def main() -> int:
     r_bound, r_by = bound_ms(r_flops, r_bytes)
     log(
         f"  kernel {render_ms} ms (plain {render_plain_ms} ms), {live} live ray-steps of {nominal} nominal, "
-        f"bound {r_bound} ms ({r_by})"
+        f"bound {r_bound} ms ({r_by}); live ray-steps / (32 x warp sweeps) = {render_eff}"
     )
 
     tri16 = pack_tris(cornell)
@@ -578,7 +745,7 @@ def main() -> int:
     tpy = (torch.arange(t_rays, device=dev) // tw).float()
     t_args = (t_camv, TRAIN_SEED, tri, mat, tab, tpx, tpy, t_spp, t_b, tw, None)
     log(f"residual kernel vs plain, Cornell {tw}x{th}, {t_spp} spp, {t_b} bounces, hash draws:")
-    t_res, mx, mean, res_plain_ms, t_live = check_residuals("cornell/train", t_args, with_steps=True)
+    t_res, mx, mean, res_plain_ms, t_live, res_eff = check_residuals("cornell/train", t_args)
     res_err, res_mean = max(res_err, mx), max(res_mean, mean)
     res_bytes = sum(x.numel() * x.element_size() for x in t_res)
     res_ms = cuda_ms(lambda: render_rays_residuals(*t_args), 3)
@@ -587,7 +754,7 @@ def main() -> int:
     rr_bound, rr_by = bound_ms(rr_flops, rr_bytes)
     log(
         f"  kernel {res_ms} ms (plain {res_plain_ms} ms), {t_live} live ray-steps of {t_rays * t_spp * t_b} nominal, "
-        f"residuals {res_bytes} bytes, bound {rr_bound} ms ({rr_by})"
+        f"residuals {res_bytes} bytes, bound {rr_bound} ms ({rr_by}); live ray-steps / (32 x warp sweeps) = {res_eff}"
     )
     log(f"replay kernel vs plain, on those residuals:")
     g = torch.from_numpy(rng.normal(size=(t_rays, 3)).astype(np.float32)).to(dev)
@@ -861,6 +1028,7 @@ def main() -> int:
             "bound_ms": r_bound,
             "bound_by": r_by,
             "library_ms": None,
+            "lane_efficiency": render_eff,
             "shape": f"{width}x{height} px, {spp} spp, {bounces} bounces, {n_tris} tris, {live} live ray-steps",
         },
         {
@@ -876,6 +1044,7 @@ def main() -> int:
             "bound_ms": rr_bound,
             "bound_by": rr_by,
             "library_ms": None,
+            "lane_efficiency": res_eff,
             "shape": f"{tw}x{th} px, {t_spp} spp, {t_b} bounces, {n_tris} tris, {t_live} live ray-steps, "
                      f"{res_bytes} residual bytes",
         },

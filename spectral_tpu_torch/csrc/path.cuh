@@ -146,12 +146,23 @@ __device__ __forceinline__ void start_path(Path& st, const Ray& r) {
   st.n_valid = (float)kW;
 }
 
+// The hit triangle's normal and material id (zero on a miss).
+struct Surface {
+  float nx, ny, nz;
+  int m;
+};
+
+// The Surface of a packed row (normal at 0:3, material id at column 16).
+__device__ __forceinline__ Surface row_surface(const float* tp) {
+  return Surface{tp[0], tp[1], tp[2], (int)tp[16]};
+}
+
 // One bounce of a live path after its nearest hit (hit, front, t and the
-// hit triangle's packed row tp, read only on a hit): material fetch,
-// spectral weight, scatter and termination (_scatter_shade). Returns the
-// bounce's material residual: mat + 1 for a hit, -1 for a background miss.
+// hit triangle's surface sf, read only on a hit): material fetch, spectral
+// weight, scatter and termination (_scatter_shade). Returns the bounce's
+// material residual: mat + 1 for a hit, -1 for a background miss.
 __device__ __forceinline__ int shade(Path& st, bool hit, bool front, float t,
-                                     const float* tp,
+                                     const Surface& sf,
                                      const float* __restrict__ s_mat,
                                      const Curves& cv, float u_a, float u_b,
                                      float u_c) {
@@ -168,10 +179,10 @@ __device__ __forceinline__ int shade(Path& st, bool hit, bool front, float t,
   float nbx = 0.0f, nby = 0.0f, nbz = 0.0f;
   int m = 0;
   if (hit) {
-    nbx = front ? tp[0] : -tp[0];
-    nby = front ? tp[1] : -tp[1];
-    nbz = front ? tp[2] : -tp[2];
-    m = (int)tp[16];
+    nbx = front ? sf.nx : -sf.nx;
+    nby = front ? sf.ny : -sf.ny;
+    nbz = front ? sf.nz : -sf.nz;
+    m = sf.m;
   }
   const float* mr = s_mat + m * kMatStride;
   const float c0 = mr[0], c1 = mr[1], c2 = mr[2];

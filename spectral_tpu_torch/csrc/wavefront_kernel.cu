@@ -89,9 +89,10 @@ __device__ __forceinline__ int trace(const Scene& sc, Path& st,
   const LeafHit h = nearest_hit_leaves(sc.tri, sc.leaf, sc.n_leaves,
                                        sc.leaf_size, st.r.ox, st.r.oy, st.r.oz,
                                        st.r.dx, st.r.dy, st.r.dz, visits);
-  return shade(st, h.hit, h.front, h.t,
-               sc.tri + (size_t)h.row * kLeafTriStride, s_mat, cv,
-               u(3 + 3 * b), u(4 + 3 * b), u(5 + 3 * b));
+  const Surface sf =
+      h.hit ? row_surface(sc.tri + (size_t)h.row * kLeafTriStride) : Surface{};
+  return shade(st, h.hit, h.front, h.t, sf, s_mat, cv, u(3 + 3 * b),
+               u(4 + 3 * b), u(5 + 3 * b));
 }
 
 __device__ __forceinline__ void store_state(float* __restrict__ state,

@@ -150,11 +150,11 @@ INTERSECT = Kernel(
 )
 RENDER = Kernel(
     "render", "render_kernel.cu", "render_launch",
-    [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P],
+    [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P],
 )
 RENDER_RESIDUALS = Kernel(
     "render_residuals", "render_kernel.cu", "render_residuals_launch",
-    [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
+    [P, ctypes.c_uint32, P, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P],
 )
 RENDER_LEAVES = Kernel(
     "render_leaves", "render_kernel.cu", "render_leaves_launch",

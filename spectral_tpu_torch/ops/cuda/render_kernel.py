@@ -13,6 +13,11 @@ dense sweep; larger ones pass a leaf pack (``pack_scene_leaves``) and take
 the Morton-leaf sweep, in this megakernel (``sched="mega"``) or in the
 sorted per-bounce scheduler of ops/cuda/wavefront_kernel.py.
 
+The dense CUDA forms (forward and residual) can also report how many
+sweeps each warp ran (``warp_steps``): live ray-steps / (32 x warp sweeps)
+is the share of lanes that sweep a live path. It counts the kernel's own
+scheduling, so the plain version has no such output.
+
 The residual form also returns what the fused backward replays
 (ops/cuda/grad_kernel.py), in the JAX layout: hero [spp, N], n_valid
 [spp, N], power [spp, W, N] and the per-bounce material residual matres
@@ -67,6 +72,8 @@ TRI_PACK_WIDTH = 17
 MAT_PACK_WIDTH = 16
 # curve tables [5, 95]: CIE x, y, z, normalized D65, background SPD
 N_TABLES = 5
+# lanes of a warp of the CUDA kernel (``warp_steps`` has one entry a warp)
+WARP = 32
 # The dense sweep covers scenes up to this many triangles (the JAX
 # package's cutoff too); larger scenes take the leaf sweep.
 DENSE_CUTOFF = 128
@@ -248,7 +255,8 @@ def comb_cell(hero: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor, t
     return lw, cw, xg - cw.to(torch.float32)
 
 
-def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack=None, visits=None):
+def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack=None, visits=None,
+           warp_steps=None):
     n = px.shape[0]
     dev = px.device
     if cam_vec.shape != (20,) or py.shape != (n,) or px.ndim != 1:
@@ -264,6 +272,8 @@ def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, step
         if visits is not None:
             raise ValueError("visits counts leaves: it needs a leaf pack")
     else:
+        if warp_steps is not None:
+            raise ValueError("warp_steps counts the dense sweep's warps: it needs no leaf pack")
         if leaf_pack.ndim != 2 or leaf_pack.shape[1] != LEAF_PACK_WIDTH or leaf_pack.shape[0] < 1:
             raise ValueError(f"leaf_pack must be [NL, {LEAF_PACK_WIDTH}], got {tuple(leaf_pack.shape)}")
         if (tri_pack.ndim != 2 or tri_pack.shape[1] != LEAF_TRI_WIDTH
@@ -280,14 +290,16 @@ def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, step
         raise ValueError(f"spp {spp} and bounces {bounces} must be >= 1")
     if rand is not None and rand.shape != (spp, n_uniforms(bounces), n):
         raise ValueError(f"rand must be [{spp}, {n_uniforms(bounces)}, {n}], got {tuple(rand.shape)}")
-    for name, x in (("steps", steps), ("visits", visits)):
-        if x is not None and (x.shape != (n,) or x.dtype != torch.int32):
-            raise ValueError(f"{name} must be an int32 [N] tensor")
+    for name, x, size in (("steps", steps, n), ("visits", visits, n), ("warp_steps", warp_steps, -(-n // WARP))):
+        if x is not None and (x.shape != (size,) or x.dtype != torch.int32 or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 [{size}] tensor")
     for name, x in (("cam_vec", cam_vec), ("tri_pack", tri_pack), ("mat_pack", mat_pack),
                     ("tables", tables), ("py", py), ("rand", rand), ("steps", steps),
-                    ("leaf_pack", leaf_pack), ("visits", visits)):
+                    ("leaf_pack", leaf_pack), ("visits", visits), ("warp_steps", warp_steps)):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, px on {dev}")
+    if warp_steps is not None and dev.type != "cuda":
+        raise ValueError("warp_steps counts the CUDA kernel's warp sweeps: it needs CUDA tensors")
 
 
 def camera_rays(cam_vec, px, py, u0, u1, u_r, u_th):
@@ -547,7 +559,7 @@ def render_rays_reference(
 
 def render_rays(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-    image_width, rand=None, steps=None, leaf_pack=None, visits=None,
+    image_width, rand=None, steps=None, leaf_pack=None, visits=None, warp_steps=None,
 ) -> torch.Tensor:
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] f32.
 
@@ -556,10 +568,12 @@ def render_rays(
     hash; ``rand``: injected planes [spp, n_uniforms(bounces), N] f32;
     ``steps``: optional int32 [N] output of live ray-steps per ray;
     ``leaf_pack``: the leaves of a ``pack_scene_leaves`` tri_pack, for the
-    leaf sweep; ``visits``: optional int32 [N] output of leaves entered.
-    CUDA tensors launch the kernel (the leaf form with a leaf pack), CPU
-    tensors run the plain version."""
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits)
+    leaf sweep; ``visits``: optional int32 [N] output of leaves entered;
+    ``warp_steps``: optional int32 [ceil(N / 32)] output of each warp's
+    sweeps (dense form on CUDA tensors only; 0 for a warp that did not
+    run). CUDA tensors launch the kernel (the leaf form with a leaf pack),
+    CPU tensors run the plain version."""
+    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps)
     if px.device.type == "cpu":
         return render_rays_reference(
             cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
@@ -569,15 +583,16 @@ def render_rays(
     _launch(
         build.RENDER if leaf_pack is None else build.RENDER_LEAVES, cam_vec, seed, tri_pack,
         mat_pack, tables, px, py, spp, bounces, image_width, rand, xyz, steps, leaf_pack, visits,
+        warp_steps,
     )
     return xyz
 
 
 def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-            image_width, rand, xyz, steps, leaf_pack, visits, residuals=()):
+            image_width, rand, xyz, steps, leaf_pack, visits, warp_steps, residuals=()):
     """Launch the megakernel (dense or leaf form, forward or residual) on
-    CUDA tensors, writing xyz, steps and visits (or None) and the residual
-    buffers."""
+    CUDA tensors, writing xyz, steps, visits and warp_steps (or None) and
+    the residual buffers."""
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
     f32 = torch.float32
@@ -593,7 +608,15 @@ def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, boun
         n_leaves = leaf_pack.shape[0]
         scene = (tri_pack.data_ptr(), leaf_pack.data_ptr(), n_leaves, tri_pack.shape[0] // n_leaves)
     counters = (None if steps is None else steps.data_ptr(),)
-    if leaf_pack is not None:
+    if leaf_pack is None:
+        if warp_steps is not None:
+            warp_steps.zero_()
+        counters += (None if warp_steps is None else warp_steps.data_ptr(),)
+        if kernel is build.RENDER:
+            # the persistent grid's pixel counter
+            next_pixel = torch.zeros(1, dtype=torch.int32, device=px.device)
+            counters += (next_pixel.data_ptr(),)
+    else:
         counters += (None if visits is None else visits.data_ptr(),)
     kernel.launch(
         px.device,
@@ -624,7 +647,7 @@ def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
 
 def render_rays_residuals(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-    image_width, rand=None, steps=None, out=None, leaf_pack=None, visits=None,
+    image_width, rand=None, steps=None, out=None, leaf_pack=None, visits=None, warp_steps=None,
 ):
     """``render_rays`` that also records the path residuals: returns
     (xyz [N, 3], hero [spp, N], n_valid [spp, N], power [spp, W, N],
@@ -633,7 +656,7 @@ def render_rays_residuals(
     write into; every element is written. CUDA tensors launch the kernel's
     residual form (its own launch count), CPU tensors run the plain
     version."""
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits)
+    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps)
     n = px.shape[0]
     dev = px.device
     out = residual_buffers(spp, bounces, n, dev, out)
@@ -649,7 +672,7 @@ def render_rays_residuals(
     _launch(
         build.RENDER_RESIDUALS if leaf_pack is None else build.RENDER_LEAVES_RESIDUALS,
         cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-        image_width, rand, xyz, steps, leaf_pack, visits, out,
+        image_width, rand, xyz, steps, leaf_pack, visits, warp_steps, out,
     )
     return (xyz, *out)
 

@@ -100,6 +100,60 @@ def test_render_kernel_equals_plain(cuda_device, scene_id, injected):
     assert ref.sum().item() > 0
 
 
+# The dense megakernel regenerates: a lane starts its next sample as soon as
+# its path ends, so the lanes of a warp sit at different samples and
+# bounces; the forward form also runs a persistent grid whose lanes take
+# whole pixels from a counter. Its edges: one sample, one bounce, a ragged
+# last warp and block (1000 rays), PRISM's glass and diffuse paths of very
+# different lengths in one warp; forward and residual form (into
+# garbage-filled buffers), each bit-equal to the plain version.
+_EDGES = {
+    "spp1": (CORNELL, 32, 32, 1, 5, True),
+    "bounces1": (CORNELL, 32, 32, 4, 1, False),
+    "ragged": (TRIS, 40, 25, 3, 5, False),
+    "prism": (PRISM, 32, 32, 8, 10, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", (False, True), ids=("forward", "residual"))
+@pytest.mark.parametrize("case", sorted(_EDGES))
+def test_dense_kernel_edges_bit_equal(cuda_device, case, residual):
+    scene_id, w, h, spp, bounces, injected = _EDGES[case]
+    n = w * h
+    tri, mat, tab = pack_scene(build_scene(scene_id, cuda_device))
+    cam = camera_vector(scene_camera(scene_id, w, h, cuda_device))
+    px = (torch.arange(n, device=cuda_device) % w).float()
+    py = (torch.arange(n, device=cuda_device) // w).float()
+    rand = None
+    if injected:
+        planes = np.random.default_rng(scene_id + 40).uniform(size=(spp, n_uniforms(bounces), n))
+        rand = torch.from_numpy(planes.astype(np.float32)).to(cuda_device)
+    args = (cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand)
+    steps = [torch.full((n,), -1, dtype=torch.int32, device=cuda_device) for _ in range(2)]
+    warps = torch.full((-(-n // 32),), -1, dtype=torch.int32, device=cuda_device)
+    if residual:
+        got = render_rays_residuals(*args, steps[0], out=_garbage(spp, bounces, n, cuda_device), warp_steps=warps)
+    else:
+        got = (render_rays(*args, steps[0], warp_steps=warps),)
+    torch.cuda.synchronize()
+    ref = render_rays_reference(*args, steps[1], residuals=residual)
+    ref = ref if residual else (ref,)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(steps[0], steps[1])
+    assert ref[0].sum().item() > 0
+    live = steps[0].to(torch.int64)
+    if residual:
+        # regeneration on a grid of one warp per 32 rays: a warp sweeps as
+        # often as its busiest lane has live ray-steps
+        busiest = torch.nn.functional.pad(live, (0, 32 * warps.numel() - n)).reshape(-1, 32).amax(dim=1)
+        assert torch.equal(warps.to(torch.int64), busiest)
+    else:
+        # the persistent grid: at most 32 live ray-steps a sweep
+        assert int(warps.min()) >= 0 and int(live.sum()) <= 32 * int(warps.sum())
+
+
 def _columns_close(got, ref, rel=2e-4):
     got, ref = got.double().reshape(ref.shape[0], -1), ref.double().reshape(ref.shape[0], -1)
     for j in range(ref.shape[1]):

@@ -185,6 +185,24 @@ def test_live_steps_count():
     assert (steps >= 3).all() and (steps <= 12).all()  # >= 1 bounce per sample
 
 
+def test_warp_steps_needs_the_dense_cuda_kernel():
+    """warp_steps counts the CUDA kernel's sweeps: the plain version has no
+    such output, so CPU tensors, a leaf pack or a wrong shape raise."""
+    scene = build_scene(TRIS, "cpu")
+    tri, mat, tab = pack_scene(scene)
+    w, h = 40, 25
+    cam = camera_vector(scene_camera(TRIS, w, h, "cpu"))
+    px = (torch.arange(w * h) % w).float()
+    py = (torch.arange(w * h) // w).float()
+    warps = torch.zeros(32, dtype=torch.int32)  # ceil(1000 / 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        render_rays(cam, 5, tri, mat, tab, px, py, 2, 4, w, warp_steps=warps)
+    with pytest.raises(ValueError, match=r"int32 \[32\]"):
+        render_rays(cam, 5, tri, mat, tab, px, py, 2, 4, w, warp_steps=torch.zeros(31, dtype=torch.int32))
+    with pytest.raises(ValueError, match="leaf pack"):
+        render_rays(cam, 5, torch.zeros(8, 18), mat, tab, px, py, 2, 4, w, leaf_pack=torch.zeros(1, 8), warp_steps=warps)
+
+
 def test_render_manager_chunks_and_resume(tmp_path):
     scene = build_scene(CORNELL, "cpu")
     cam = scene_camera(CORNELL, 20, 20, "cpu")
