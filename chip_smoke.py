@@ -7,8 +7,10 @@ Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from csrc/ with nvcc, all sources at once,
    check with ``cuobjdump -sass`` that the dense render kernels read the
-   scene with 128-bit shared loads, and time the render kernel's first
-   launch in this process (1 pixel) beside a second one;
+   scene with 128-bit shared loads and the leaf sweeps (the leaf forms of
+   the render kernel, the sorted camera and bounce kernels) with 128-bit
+   global loads, and time the render kernel's first launch in this process
+   (1 pixel) beside a second one;
 3. each kernel against its plain PyTorch version on the card, at 64x64,
    8 spp, 5 bounces on each scene, with injected uniform planes and with
    the hash draws: the render megakernel and its residual form (residual
@@ -37,20 +39,26 @@ Phases, each fatal on failure:
    on PRISM's 64x32 crop, 64 spp, 6 bounces (the fused configuration of
    examples/inverse_dispersion.py); a finite, nonzero Sellmeier gradient;
 8. the large-scene kernels against their plain versions on
-   build_tri_field(520, seed=3) and on the 10k field (10008, seed=0), at
-   128x64, 4 spp, 5 bounces, with planes and with hash draws: the leaf
-   megakernel, forward and residual (into garbage-filled buffers); the
-   sorted scheduler's three kernels, forward and residual; the sorted
-   scheduler against the leaf megakernel (one source of arithmetic: equal
-   paths); and the leaf megakernel on CORNELL with 8-triangle leaves
-   against the dense megakernel. Live ray-steps and entered leaves equal;
+   build_tri_field(520, seed=3), on the 10k field (10008, seed=0), with
+   planes and with hash draws, and on the 200k field (200064, seed=0) with
+   hash draws, at 128x64, 4 spp, 5 bounces: the leaf megakernel, forward and
+   residual (into garbage-filled buffers); the sorted scheduler's three
+   kernels, forward and residual; the sorted scheduler against the leaf
+   megakernel (one source of arithmetic: equal paths); and the leaf
+   megakernel on CORNELL with 8-triangle leaves against the dense
+   megakernel. All bit-equal: xyz, every residual, live ray-steps and the
+   leaves, groups and super-groups entered;
 9. the large-scene kernels at the field's shapes (10k field, 512x256, 4 spp,
    6 bounces, hash draws; bench.py:29-98), each timed beside its plain
-   version and its bound, and held against the plain version there;
+   version and its bound (counted from the run's boxes entered, and for
+   comparison under the flat sweep over the same pack), with the slab
+   tests a live ray-step at each level, and held bit-equal to the plain
+   version there;
 10. the field render as a user runs it: RenderManager with one chunk the
    size of the frame, through render_chunk into the sorted scheduler; the
    same frame through the leaf megakernel (sched="mega"), equal; then the
-   200k field (200064, seed=0; bench.py:281-287) on the same frame;
+   200k field (bench.py:281-287) on the same frame, both schedulers equal,
+   and its sorted kernels timed with their bounds and counts;
 11. the field training path: three ``train_step_fused`` steps on the 10k
    field at 512x256, 4 spp, 6 bounces (bench.py:228-280), from a perturbed
    white against a target at the true materials, and one fused gradient
@@ -71,12 +79,13 @@ behind ops/cuda/render_kernel.py::LEAF_SIZE) and prints one JSON line.
 
 ``python3 chip_smoke.py --ab BASE [OTHER ...]`` times the render kernels
 (B2 at the default frame, B3 at the training frame, B5 and the sorted
-kernels at the 10k field frame) of other checkouts of the port against
-this one's, one process each, in the order BASE, this, OTHER..., this,
-BASE: a checkout is any directory holding a ``spectral_tpu_torch``
-package, such as an unpacked parent commit (``git archive``) or a copy
-with one compiled choice changed. Every output must be bit-equal to this
-checkout's. ``--time ROOT`` is one such process.
+kernels at the 10k field frame, the sorted kernels at the 200k field
+frame) of other checkouts of the port against this one's, one process
+each, in the order BASE, this, OTHER..., this, BASE: a checkout is any
+directory holding a ``spectral_tpu_torch`` package, such as an unpacked
+parent commit (``git archive``) or a copy with one compiled choice
+changed. Every output must be bit-equal to this checkout's (digests of
+the renders and residuals). ``--time ROOT`` is one such process.
 """
 
 from __future__ import annotations
@@ -169,9 +178,11 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def shared_loads(lib) -> dict:
-    """The shared-memory load instructions of each render_kernel<kSaveResiduals,
-    kLeaves> in a built library, by width, from ``cuobjdump -sass``."""
+def sass_loads(lib, op: str, name: str) -> dict:
+    """The load instructions ``op`` (LDS or LDG) of each kernel whose mangled
+    name holds ``name`` followed by its bool template arguments, in a built
+    library, by width and kind, from ``cuobjdump -sass``; keyed by the
+    template arguments, e.g. "<0,1>"."""
     from spectral_tpu_torch.ops.cuda.build import find_nvcc
 
     cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -179,10 +190,11 @@ def shared_loads(lib) -> dict:
                           check=True).stdout
     loads = {}
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
-        form = re.search(r"render_kernelILb(\d)ELb(\d)E", fn)
+        form = re.search(rf"\d{name}((?:ILb\d|ELb\d)+)E", fn)
         if form:
-            kinds = [m.group(1) or ".32" for m in re.finditer(r"\bLDS((?:\.\w+)*)", body)]
-            loads[f"<{form.group(1)},{form.group(2)}>"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+            kinds = [m.group(1) or ".32" for m in re.finditer(rf"\b{op}((?:\.\w+)*)", body)]
+            key = "<" + ",".join(re.findall(r"Lb(\d)", form.group(1))) + ">"
+            loads[key] = {k: kinds.count(k) for k in sorted(set(kinds))}
     return loads
 
 
@@ -371,45 +383,55 @@ def field_args(scene, w: int, h: int, spp: int, bounces: int, rand, seed: int, l
 def check_leaves(name: str, args, leaf) -> dict:
     """The leaf megakernel (forward, and residual into garbage) and the
     sorted scheduler (forward and residual) against their plain versions,
-    and the two schedulers against each other. Returns the largest errors
-    and the plain versions' times in ms."""
+    and the two schedulers against each other: xyz, every residual, live
+    ray-steps and the leaves, groups and super-groups entered, all
+    bit-equal. Returns the largest errors, the plain versions' times in ms
+    and the counts."""
     from spectral_tpu_torch.ops.cuda.render_kernel import render_rays, render_rays_reference, render_rays_residuals
     from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront, render_rays_wavefront_reference
 
     n, spp, bounces = args[5].numel(), args[7], args[8]
     dev = args[5].device
     wf = (*args[:5], leaf, *args[5:])
-    c = [torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(4)]
-    wc = [torch.zeros((spp, n), dtype=torch.int32, device=dev) for _ in range(4)]
-    fwd = render_rays(*args, c[0], leaf_pack=leaf, visits=c[1])
+    names = ("steps", "visits", "group_visits", "super_visits")
+    c = [dict(zip(names, (torch.zeros(n, dtype=torch.int32, device=dev) for _ in names))) for _ in range(2)]
+    wc = [dict(zip(names, (torch.zeros((spp, n), dtype=torch.int32, device=dev) for _ in names))) for _ in range(2)]
+    fwd = render_rays(*args, c[0]["steps"], leaf_pack=leaf, **{k: v for k, v in c[0].items() if k != "steps"})
     res = render_rays_residuals(*args, out=garbage(spp, bounces, n, dev), leaf_pack=leaf)
-    wres = render_rays_wavefront(*wf, save_residuals=True, steps=wc[0], visits=wc[1], out=garbage(spp, bounces, n, dev))
+    wres = render_rays_wavefront(*wf, save_residuals=True, out=garbage(spp, bounces, n, dev), **wc[0])
     wfwd = render_rays_wavefront(*wf)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = render_rays_reference(*args, c[2], residuals=True, leaf_pack=leaf, visits=c[3])
+    ref = render_rays_reference(*args, c[1]["steps"], residuals=True, leaf_pack=leaf,
+                                **{k: v for k, v in c[1].items() if k != "steps"})
     torch.cuda.synchronize()
     mega_plain_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    wref = render_rays_wavefront_reference(*wf, save_residuals=True, steps=wc[2], visits=wc[3])
+    wref = render_rays_wavefront_reference(*wf, save_residuals=True, **wc[1])
     torch.cuda.synchronize()
     sorted_plain_ms = 1e3 * (time.perf_counter() - t0)
-    if not (torch.equal(c[0], c[2]) and torch.equal(c[1], c[3]) and torch.equal(wc[0], wc[2]) and torch.equal(wc[1], wc[3])):
-        raise SystemExit(f"{name}: live ray-steps or entered leaves differ from the plain versions")
-    if not (torch.equal(wc[0].sum(0), c[0]) and torch.equal(wc[1].sum(0), c[1])):
-        raise SystemExit(f"{name}: the schedulers' live ray-steps or entered leaves differ")
+    for k in names:
+        if not (torch.equal(c[0][k], c[1][k]) and torch.equal(wc[0][k], wc[1][k])):
+            raise SystemExit(f"{name}: {k} differ from the plain versions")
+        if not torch.equal(wc[0][k].sum(0), c[0][k]):
+            raise SystemExit(f"{name}: the schedulers' {k} differ")
     if not torch.equal(res[0], fwd) or not torch.equal(wres[0], wfwd):
         raise SystemExit(f"{name}: a residual form's xyz differs from its forward's")
     mega_err, mega_mean = compare_residuals(f"{name} leaf megakernel", res, ref)
     sorted_err, sorted_mean = compare_residuals(f"{name} sorted", wres, wref)
     between, _ = compare_residuals(f"{name} sorted vs leaf megakernel", wres, res)
-    equal = all(torch.equal(a, b) for a, b in zip(wres, res))
+    for what, x, y in (("leaf megakernel vs plain", res, ref), ("sorted vs plain", wres, wref),
+                       ("sorted vs leaf megakernel", wres, res)):
+        if not all(torch.equal(a, b) for a, b in zip(x, y)):
+            raise SystemExit(f"{name}: {what} not bit-equal")
+    counts = {k: int(v.to(torch.int64).sum()) for k, v in c[0].items()}
     log(
-        f"  {name}: leaf megakernel max abs {mega_err:.3g} (mean {mega_mean:.3g}), sorted max abs {sorted_err:.3g} "
-        f"(mean {sorted_mean:.3g}), sorted vs leaf megakernel max abs {between:.3g} (bit-equal: {equal}); "
-        f"{int(c[0].sum())} live ray-steps, {int(c[1].sum())} leaves entered; plain {mega_plain_ms:.0f} / {sorted_plain_ms:.0f} ms"
+        f"  {name}: leaf megakernel, sorted scheduler and their plain versions bit-equal in xyz, residuals and "
+        f"counts; {counts['steps']} live ray-steps, {counts['visits']} leaves, {counts['group_visits']} groups, "
+        f"{counts['super_visits']} super-groups entered; plain {mega_plain_ms:.0f} / {sorted_plain_ms:.0f} ms"
     )
-    return dict(mega_err=mega_err, mega_mean=mega_mean, sorted_err=sorted_err, sorted_mean=sorted_mean, between=between)
+    return dict(mega_err=mega_err, mega_mean=mega_mean, sorted_err=sorted_err, sorted_mean=sorted_mean,
+                between=between, counts=counts, mega_plain_ms=mega_plain_ms, sorted_plain_ms=sorted_plain_ms)
 
 
 def timed_sorted(args, leaf, plain: bool, reps: int = 1):
@@ -418,26 +440,33 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1):
     that each launch is timed with CUDA events; the best of ``reps``
     renders after a warm-up. Returns (ms of the camera launch, ms of the
     bounce launches together, ms of the integrate launch, ms of the sort
-    and gather glue, live ray-steps of bounces >= 1, leaves entered by the
-    camera launch, leaves entered by the bounce launches, xyz per
-    sample-ray)."""
+    and gather glue, live ray-steps of bounces >= 1, boxes entered by the
+    camera launch and by the bounce launches (dicts: leaves, groups,
+    super-groups), xyz per sample-ray). A checkout from before the group
+    tables counts leaves only."""
+    import inspect
+
+    from spectral_tpu_torch.ops.cuda import render_kernel as rk
     from spectral_tpu_torch.ops.cuda import wavefront_kernel as wk
 
     cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
     camera, bounce, integrate = wk._PLAIN if plain else wk._CUDA
+    grouped = "sweep" in inspect.signature(camera).parameters
     n = px.numel()
     nrays = spp * n
     dev = px.device
+    sweep = {"sweep": rk.leaf_tables(tri, leaf)} if grouped else {}
+    levels = ("visits", "group_visits", "super_visits") if grouped else ("visits",)
     best = None
     for rep in range(reps + 1):
         steps = torch.zeros((spp, n), dtype=torch.int32, device=dev)
-        visits = torch.zeros_like(steps)
+        boxes = {k: torch.zeros_like(steps) for k in levels}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4 * bounces + 2)]
         state = torch.empty((wk.STATE_ROWS, nrays), device=dev)
         ev[0].record()
-        camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, visits)
+        camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, **boxes, **sweep)
         ev[1].record()
-        v_cam = visits.sum()
+        b_cam = {k: int(v.to(torch.int64).sum()) for k, v in boxes.items()}
         orig = torch.arange(nrays, dtype=torch.int32, device=dev)
         lo, inv_ext = wk._key_box(leaf)
         k = 2
@@ -447,7 +476,8 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1):
             state = state.index_select(1, perm)
             orig = orig.index_select(0, perm)
             ev[k + 1].record()
-            bounce(seed, tri, mat, tab, leaf, px, py, spp, bounces, b, w, rand, state, orig, None, steps, visits)
+            bounce(seed, tri, mat, tab, leaf, px, py, spp, bounces, b, w, rand, state, orig, None, steps, **boxes,
+                   **sweep)
             ev[k + 2].record()
             k += 3
         xyz = torch.empty((nrays, 3), device=dev)
@@ -459,19 +489,82 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1):
         t_glue = sum(ev[2 + 3 * i].elapsed_time(ev[3 + 3 * i]) for i in range(bounces - 1))
         t_bounce = sum(ev[3 + 3 * i].elapsed_time(ev[4 + 3 * i]) for i in range(bounces - 1))
         t_int = ev[k].elapsed_time(ev[k + 1])
-        out = (t_cam, t_bounce, t_int, t_glue, int(steps.sum()) - nrays, int(v_cam), int(visits.sum() - v_cam), xyz)
+        b_all = {k: int(v.to(torch.int64).sum()) - b_cam[k] for k, v in boxes.items()}
+        out = (t_cam, t_bounce, t_int, t_glue, int(steps.sum()) - nrays, b_cam, b_all, xyz)
         if rep > 0 and (best is None or sum(out[:3]) < sum(best[:3])):
             best = out
     return best
 
 
-def leaf_work(args, leaf) -> tuple[float, float, int, int]:
-    """(scene bytes, ray bytes read and written by a forward, valid leaves,
-    leaf size) of a large-scene render."""
-    cam, _, tri, mat, tab, px, *_ = args
+def sweep_work(live: int, boxes: dict, leaf, k_size: int) -> tuple[float, float, dict]:
+    """FP32 operations of the leaf sweeps of ``live`` ray-steps that entered
+    ``boxes`` (visits, group_visits, super_visits) of the leaf pack
+    ``leaf`` (``k_size`` triangles a leaf): a slab test for every valid super-group, each group of a
+    super-group entered and each leaf of a group entered (the fan-out: at
+    most, as the ragged last box has fewer), and 51 a triangle of each leaf
+    entered. Returns (flops, flops of the flat sweep over the same pack,
+    which tests every valid leaf, and the slab tests per live ray-step by
+    level)."""
+    from spectral_tpu_torch.ops.intersect import GROUP_SIZE, SUPER_SIZE, leaf_groups
+
     n_valid = int((leaf[:, 6] != 0).sum())
-    scene_bytes = 4 * (tri.numel() + leaf.numel() + mat.numel() + tab.numel() + cam.numel())
-    return scene_bytes, 4 * 5 * px.numel(), n_valid, tri.shape[0] // leaf.shape[0]
+    n_supers = int((leaf_groups(leaf)[1][:, 6] != 0).sum())
+    tests = {"super-groups": live * n_supers, "groups": SUPER_SIZE * boxes["super_visits"],
+             "leaves": GROUP_SIZE * boxes["group_visits"]}
+    tri_flops = boxes["visits"] * k_size * SWEEP_FLOPS_PER_TRI
+    flops = SLAB_FLOPS_PER_LEAF * sum(tests.values()) + tri_flops
+    flat = SLAB_FLOPS_PER_LEAF * live * n_valid + tri_flops
+    return flops, flat, {k: v / max(live, 1) for k, v in tests.items()}
+
+
+def leaf_work(args, leaf) -> tuple[float, float, int]:
+    """(scene bytes, ray bytes read and written by a forward, leaf size) of
+    a large-scene render: the scene as the kernels read it, the leaf tables
+    (ops/cuda/render_kernel.py::leaf_tables; a checkout from before them
+    reads the leaf pack), the materials, curves and camera."""
+    from spectral_tpu_torch.ops.cuda import render_kernel as rk
+
+    cam, _, tri, mat, tab, px, *_ = args
+    tables = rk.leaf_tables(tri, leaf)[1:] if hasattr(rk, "leaf_tables") else (tri, leaf)
+    scene_bytes = sum(x.numel() * x.element_size() for x in (*tables, mat, tab, cam))
+    return scene_bytes, 4 * 5 * px.numel(), tri.shape[0] // leaf.shape[0]
+
+
+def sorted_report(name: str, args, leaf, plain: bool) -> dict:
+    """The sorted kernels on one frame, timed per launch (timed_sorted, the
+    best of 3) and, with ``plain``, held bit-equal to their plain versions
+    in xyz and every count; the bounds of the camera and bounce launches
+    under the group hierarchy and, for comparison, under the flat sweep
+    over the same pack; slab tests per live ray-step by level."""
+    scene_bytes, _, k_size = leaf_work(args, leaf)
+    n_rays, spp, bounces = args[5].numel(), args[7], args[8]
+    samples = n_rays * spp
+    t = timed_sorted(args, leaf, False, reps=3)
+    r = dict(cam_ms=t[0], bounce_ms=t[1], int_ms=t[2], glue_ms=t[3], live=t[4], b_cam=t[5], b_bounce=t[6])
+    if plain:
+        p = timed_sorted(args, leaf, True)
+        if p[4:7] != t[4:7] or not torch.equal(p[7], t[7]):
+            raise SystemExit(f"sorted scheduler, {name}: the kernels differ from their plain versions")
+        r.update(p_cam=p[0], p_bounce=p[1], p_int=p[2])
+    cam_sw, cam_flat, r["cam_tests"] = sweep_work(samples, t[5], leaf, k_size)
+    b_sw, b_flat, r["b_tests"] = sweep_work(t[4], t[6], leaf, k_size)
+    cam_bytes = scene_bytes + 8 * n_rays + STATE_BYTES * samples
+    b_bytes = (bounces - 1) * (scene_bytes + 8 * samples) + 2 * STATE_BYTES * t[4]
+    cam_base = samples * (SAMPLE_FLOPS + SHADE_FLOPS_PER_STEP)
+    b_base = t[4] * (SHADE_FLOPS_PER_STEP + CURVE_FLOPS)
+    r["cam_bound"], r["cam_by"] = bound_ms(cam_base + cam_sw, cam_bytes)
+    r["cam_flat_bound"], _ = bound_ms(cam_base + cam_flat, cam_bytes)
+    r["b_bound"], r["b_by"] = bound_ms(b_base + b_sw, b_bytes)
+    r["b_flat_bound"], _ = bound_ms(b_base + b_flat, b_bytes)
+    r["int_bound"], r["int_by"] = bound_ms(samples * XYZ_FLOPS, 4 * N_TABLES_FLOATS + samples * (40 + 4 + 12))
+    plain_ms = f" (plain {r['p_cam']} / {r['p_bounce']} / {r['p_int']})" if plain else ""
+    log(f"  sorted, {name}: camera {r['cam_ms']} ms, {bounces - 1} bounces {r['bounce_ms']} ms, integrate "
+        f"{r['int_ms']} ms{plain_ms}, sort and gather {r['glue_ms']} ms; bounds {r['cam_bound']} ({r['cam_by']}; flat "
+        f"sweep {r['cam_flat_bound']}), {r['b_bound']} ({r['b_by']}; flat sweep {r['b_flat_bound']}), "
+        f"{r['int_bound']} ({r['int_by']}) ms; {r['live']} live ray-steps of bounces >= 1; boxes entered: camera "
+        f"{r['b_cam']}, bounces {r['b_bounce']}; slab tests a live ray-step: camera {r['cam_tests']}, bounces "
+        f"{r['b_tests']}")
+    return r
 
 
 def leaf_size_sweep(dev) -> int:
@@ -517,8 +610,8 @@ def time_kernels(root: str) -> int:
         raise SystemExit(f"--time {root}: imported {spectral_tpu_torch.__file__} instead")
     dev = torch.device("cuda")
     build.build_all(build.KERNELS.values())
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in build.RENDER.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln.split(":", 1)[-1].strip() for k in (build.RENDER, build.WAVEFRONT_CAMERA)
+             for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
     tri, mat, tab = rk.pack_scene(build_scene(CORNELL, dev))
 
     def frame(w, h, spp, bounces, seed):
@@ -556,12 +649,18 @@ def time_kernels(root: str) -> int:
             live = int(steps.to(torch.int64).sum())
             lanes[name] = live / (32 * int(extra["warp_steps"].to(torch.int64).sum()))
         ms[name] = cuda_ms(lambda: fn(*args, **kw), reps)
-    wf = (*fa[:5], leaf, *fa[5:])
-    digest["sorted"] = sha(render_rays_wavefront(*wf, save_residuals=True))
-    cam_ms, bounce_ms, int_ms, glue_ms, *_ = timed_sorted(fa, leaf, False, reps=3)
-    ms.update(wavefront_camera=cam_ms, wavefront_bounce=bounce_ms, wavefront_integrate=int_ms, sort_and_gather=glue_ms)
+    boxes = {}
+    big = field_args(build_tri_field(BIG_FIELD_TRIS, 0, device=dev), FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
+                     None, chunk_seed(0, 0, FIELD_W))
+    for tag, (args, lf) in (("", (fa, leaf)), ("_200k", big)):
+        wf = (*args[:5], lf, *args[5:])
+        digest["sorted" + tag] = sha(render_rays_wavefront(*wf, save_residuals=True))
+        cam_ms, bounce_ms, int_ms, glue_ms, live, b_cam, b_bounce, _ = timed_sorted(args, lf, False, reps=3)
+        ms.update({"wavefront_camera" + tag: cam_ms, "wavefront_bounce" + tag: bounce_ms,
+                   "wavefront_integrate" + tag: int_ms, "sort_and_gather" + tag: glue_ms})
+        boxes["sorted" + tag] = {"bounce_live_steps": live, "camera": b_cam, "bounces": b_bounce}
     print(json.dumps({"root": os.path.abspath(root), "ms": ms, "digest": digest, "lane_efficiency": lanes,
-                      "ptxas": ptxas}), flush=True)
+                      "boxes": boxes, "ptxas": ptxas}), flush=True)
     return 0
 
 
@@ -582,7 +681,7 @@ def ab_runs(roots: list[str]) -> int:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"--time {root} failed")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        log(json.dumps({k: runs[-1][k] for k in ("root", "ms", "lane_efficiency")}))
+        log(json.dumps({k: runs[-1].get(k) for k in ("root", "ms", "lane_efficiency", "boxes")}))
     ref = runs[1]["digest"]
     for r in runs:
         r["bit_equal"] = {k: r["digest"].get(k) == v for k, v in ref.items()}
@@ -644,11 +743,19 @@ def main() -> int:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {k.source.name}: {line.strip()}")
-    # the dense sweep reads each triangle as four 128-bit shared loads
-    loads = shared_loads(build.RENDER.library())
+    # the dense sweep reads each triangle as four 128-bit shared loads, the
+    # leaf sweep as four 128-bit global loads
+    loads = sass_loads(build.RENDER.library(), "LDS", "render_kernel")
     log(f"  render_kernel<kSaveResiduals,kLeaves> shared loads by width (cuobjdump -sass): {loads}")
     if not all(any("128" in k for k in loads.get(form, {})) for form in ("<0,0>", "<1,0>")):
         raise SystemExit("the dense render kernels have no 128-bit shared loads")
+    for name in ("render_kernel", "camera_bounce_kernel", "bounce_kernel"):
+        lib = (build.RENDER if name == "render_kernel" else build.WAVEFRONT_CAMERA).library()
+        g_loads = sass_loads(lib, "LDG", name)
+        log(f"  {name} global loads by width (cuobjdump -sass): {g_loads}")
+        forms = [f for f in g_loads if name != "render_kernel" or f.endswith(",1>")]
+        if len(forms) != 2 or not all(any("128" in k for k in g_loads[f]) for f in forms):
+            raise SystemExit(f"the leaf sweep of {name} has no 128-bit global loads")
     cornell = build_scene(CORNELL, dev)
     tri, mat, tab = pack_scene(cornell)
     cam1 = camera_vector(scene_camera(CORNELL, 1, 1, dev))
@@ -857,9 +964,14 @@ def main() -> int:
     leaf_errs = []
     log(f"leaf megakernel and sorted scheduler vs plain, {lw}x{lh}, {l_spp} spp, {l_bounces} bounces:")
     field = build_tri_field(FIELD_TRIS, 0, device=dev)
-    for sname, scene in (("field520", build_tri_field(520, 3, device=dev)), ("field10k", field)):
+    t0 = time.perf_counter()
+    big = build_tri_field(BIG_FIELD_TRIS, 0, device=dev)
+    big_build_s = time.perf_counter() - t0
+    for sname, scene in (("field520", build_tri_field(520, 3, device=dev)), ("field10k", field), ("field200k", big)):
         planes = rng.uniform(size=(l_spp, n_uniforms(l_bounces), lw * lh)).astype(np.float32)
         for mode, rand in (("planes", torch.from_numpy(planes).to(dev)), ("hash", None)):
+            if sname == "field200k" and mode == "planes":
+                continue
             args, leaf = field_args(scene, lw, lh, l_spp, l_bounces, rand, chunk_seed(0, 0, lw) + 7)
             leaf_errs.append(check_leaves(f"{sname}/{mode}", args, leaf))
     c_tri, c_mat, c_tab, c_leaf = pack_scene_leaves(cornell, leaf_size=8)
@@ -880,50 +992,39 @@ def main() -> int:
     fw, fh, f_spp, f_b = FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES
     f_rays, f_samples = fw * fh, fw * fh * FIELD_SPP
     f_args, f_leaf = field_args(field, fw, fh, f_spp, f_b, None, chunk_seed(0, 0, fw))
-    scene_bytes, ray_bytes, nl_valid, k_size = leaf_work(f_args, f_leaf)
+    scene_bytes, ray_bytes, k_size = leaf_work(f_args, f_leaf)
     log(f"leaf megakernel and sorted scheduler, 10k field ({field.num_tris} tris, {f_leaf.shape[0]} leaves of "
         f"{k_size}), {fw}x{fh}, {f_spp} spp, {f_b} bounces, hash draws:")
+    box_names = ("visits", "group_visits", "super_visits")
     f_steps = torch.zeros(f_rays, dtype=torch.int32, device=dev)
-    f_visits = torch.zeros_like(f_steps)
-    f_res = render_rays_residuals(*f_args, f_steps, leaf_pack=f_leaf, visits=f_visits)
+    f_boxes = {k: torch.zeros_like(f_steps) for k in box_names}
+    f_res = render_rays_residuals(*f_args, f_steps, leaf_pack=f_leaf, **f_boxes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     f_ref = render_rays_reference(*f_args, residuals=True, leaf_pack=f_leaf)
     torch.cuda.synchronize()
     lm_plain_ms = 1e3 * (time.perf_counter() - t0)
     e, m = compare_residuals("leaf megakernel at the field shape", f_res, f_ref)
+    if not all(torch.equal(a, b) for a, b in zip(f_res, f_ref)):
+        raise SystemExit("leaf megakernel at the field shape: not bit-equal to its plain version")
     mega_err, mega_mean = max(mega_err, e), max(mega_mean, m)
     del f_ref
     lm_ms = cuda_ms(lambda: render_rays(*f_args, leaf_pack=f_leaf), 3)
     lmr_ms = cuda_ms(lambda: render_rays_residuals(*f_args, leaf_pack=f_leaf), 3)
-    f_live, f_entered = int(f_steps.to(torch.int64).sum()), int(f_visits.to(torch.int64).sum())
-    lm_flops = (f_live * (SHADE_FLOPS_PER_STEP + nl_valid * SLAB_FLOPS_PER_LEAF)
-                + f_entered * k_size * SWEEP_FLOPS_PER_TRI + f_samples * SAMPLE_FLOPS)
+    f_live = int(f_steps.to(torch.int64).sum())
+    f_box = {k: int(v.to(torch.int64).sum()) for k, v in f_boxes.items()}
+    lm_sw, lm_flat, lm_tests = sweep_work(f_live, f_box, f_leaf, k_size)
+    lm_base = f_live * SHADE_FLOPS_PER_STEP + f_samples * SAMPLE_FLOPS
     f_res_bytes = sum(x.numel() * x.element_size() for x in f_res[1:])
-    lm_bound, lm_by = bound_ms(lm_flops, scene_bytes + ray_bytes)
-    lmr_bound, lmr_by = bound_ms(lm_flops, scene_bytes + ray_bytes + f_res_bytes)
+    lm_bound, lm_by = bound_ms(lm_base + lm_sw, scene_bytes + ray_bytes)
+    lm_flat_bound, _ = bound_ms(lm_base + lm_flat, scene_bytes + ray_bytes)
+    lmr_bound, lmr_by = bound_ms(lm_base + lm_sw, scene_bytes + ray_bytes + f_res_bytes)
     log(f"  leaf megakernel {lm_ms} ms, residual form {lmr_ms} ms (plain {lm_plain_ms} ms); {f_live} live ray-steps of "
-        f"{f_samples * f_b} nominal, {f_entered} leaves entered; bounds {lm_bound} ms ({lm_by}), {lmr_bound} ms ({lmr_by})")
-    wf_cam, wf_bounce, wf_int, wf_glue, wf_live, wf_vcam, wf_vb, wf_xyz = timed_sorted(f_args, f_leaf, False, reps=3)
-    p_cam, p_bounce, p_int, p_glue, p_live, p_vcam, p_vb, p_xyz = timed_sorted(f_args, f_leaf, True)
-    if (p_live, p_vcam, p_vb) != (wf_live, wf_vcam, wf_vb) or wf_live + f_samples != f_live or wf_vcam + wf_vb != f_entered:
-        raise SystemExit("sorted scheduler: live ray-steps or entered leaves differ from the plain version or the megakernel")
-    x_err = (wf_xyz - p_xyz).abs()
-    if float(x_err.max()) > ATOL or float(x_err.mean()) > MEAN_TOL:
-        raise SystemExit("sorted scheduler at the field shape: kernels disagree with their plain versions")
-    sorted_err = max(sorted_err, float(x_err.max()))
-    del p_xyz, wf_xyz
-    cam_flops = (f_samples * (SAMPLE_FLOPS + SHADE_FLOPS_PER_STEP + nl_valid * SLAB_FLOPS_PER_LEAF)
-                 + wf_vcam * k_size * SWEEP_FLOPS_PER_TRI)
-    cam_bound, cam_by = bound_ms(cam_flops, scene_bytes + 8 * f_rays + STATE_BYTES * f_samples)
-    b_flops = (wf_live * (SHADE_FLOPS_PER_STEP + CURVE_FLOPS + nl_valid * SLAB_FLOPS_PER_LEAF)
-               + wf_vb * k_size * SWEEP_FLOPS_PER_TRI)
-    b_bytes = (f_b - 1) * (scene_bytes + 8 * f_samples) + 2 * STATE_BYTES * wf_live
-    b_bound, b_by = bound_ms(b_flops, b_bytes)
-    int_bound, int_by = bound_ms(f_samples * XYZ_FLOPS, 4 * N_TABLES_FLOATS + f_samples * (40 + 4 + 12))
-    log(f"  sorted: camera {wf_cam} ms (plain {p_cam}), {f_b - 1} bounces {wf_bounce} ms (plain {p_bounce}), "
-        f"integrate {wf_int} ms (plain {p_int}), sort and gather {wf_glue} ms; bounds {cam_bound} ({cam_by}), "
-        f"{b_bound} ({b_by}), {int_bound} ({int_by}) ms; leaves entered {wf_vcam} + {wf_vb}")
+        f"{f_samples * f_b} nominal, boxes entered {f_box}; bounds {lm_bound} ms ({lm_by}; flat sweep "
+        f"{lm_flat_bound}), {lmr_bound} ms ({lmr_by}); slab tests a live ray-step {lm_tests}")
+    wf = sorted_report("10k field", f_args, f_leaf, plain=True)
+    if wf["live"] + f_samples != f_live or any(wf["b_cam"][k] + wf["b_bounce"][k] != f_box[k] for k in box_names):
+        raise SystemExit("sorted scheduler: live ray-steps or boxes entered differ from the leaf megakernel's")
 
     # ---- 10. the field render as a user runs it ---------------------------
     f_cam = scene_camera(CORNELL, fw, fh, dev)
@@ -950,26 +1051,26 @@ def main() -> int:
     if f_img.shape != (fh, fw, 3) or lum.mean() < 1 or lum.max() < 255 or not np.isfinite(rm._fb_xyz).all():
         raise SystemExit("field render: the image is black, unlit or not finite")
     del mega_xyz
-    t0 = time.perf_counter()
-    big = build_tri_field(BIG_FIELD_TRIS, 0, device=dev)
-    big_build_s = time.perf_counter() - t0
     for k in build.KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    big_img = RenderManager(big, f_cam, f_params).render()
+    big_rm = RenderManager(big, f_cam, f_params)
+    big_img = big_rm.render()
     big_s = time.perf_counter() - t0
     big_launches = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
     big_lum = big_img.astype(np.float64).mean(-1)
+    big_mega = render_chunk(big, f_cam, chunk_seed(0, 0, fw), 0, 0, fw, fh, f_spp, f_b, sched="mega")
+    big_same = np.array_equal(big_mega.cpu().numpy(), big_rm._fb_xyz)
     log(f"200k field: {big.num_tris} tris (built in {big_build_s} s), {big_s} s, "
         f"{f_samples * f_b / big_s / 1e6} nominal Mrays/s, image mean {big_lum.mean():.2f}, max {big_lum.max():.0f}, "
-        f"launches {big_launches}")
+        f"launches {big_launches}; the same frame through the leaf megakernel equal: {big_same}")
     if big_launches.get("wavefront_bounce") != f_b - 1 or big_lum.mean() < 1 or big_lum.max() < 255:
         raise SystemExit("200k field render failed")
+    if not big_same:
+        raise SystemExit("the leaf megakernel's 200k frame differs from the sorted scheduler's")
     big_args, big_leaf = field_args(big, fw, fh, f_spp, f_b, None, chunk_seed(0, 0, fw))
-    big_cam, big_bounce, big_int, big_glue, *_ = timed_sorted(big_args, big_leaf, False)
-    log(f"  sorted kernels on the 200k field ({big_leaf.shape[0]} leaves): camera {big_cam} ms, bounces {big_bounce} ms, "
-        f"integrate {big_int} ms, sort and gather {big_glue} ms")
-    del big, big_args, big_leaf
+    big_wf = sorted_report(f"200k field ({big_leaf.shape[0]} leaves)", big_args, big_leaf, plain=False)
+    del big, big_args, big_leaf, big_rm, big_mega
     torch.cuda.empty_cache()
 
     # ---- 11. the field training path ---------------------------------------
@@ -1091,9 +1192,11 @@ def main() -> int:
             "plain_ms": lm_plain_ms,
             "bound_ms": lm_bound,
             "bound_by": lm_by,
+            "flat_sweep_bound_ms": lm_flat_bound,
             "library_ms": None,
+            "slab_tests_per_live_step": lm_tests,
             "shape": f"{fw}x{fh} px, {f_spp} spp, {f_b} bounces, {FIELD_TRIS} tris in {f_leaf.shape[0]} leaves of "
-                     f"{k_size}, {f_live} live ray-steps, {f_entered} leaves entered",
+                     f"{k_size}, {f_live} live ray-steps, boxes entered {f_box}",
         },
         {
             "name": "render_leaves_residuals",
@@ -1119,12 +1222,15 @@ def main() -> int:
             "launches_per_train_step": ftrain_launches["wavefront_camera"] // 3,
             "max_abs_err": sorted_err,
             "mean_abs_err": sorted_mean,
-            "ms": wf_cam,
-            "plain_ms": p_cam,
-            "bound_ms": cam_bound,
-            "bound_by": cam_by,
+            "ms": wf["cam_ms"],
+            "plain_ms": wf["p_cam"],
+            "bound_ms": wf["cam_bound"],
+            "bound_by": wf["cam_by"],
+            "flat_sweep_bound_ms": wf["cam_flat_bound"],
             "library_ms": None,
-            "shape": f"{f_samples} sample-rays, {FIELD_TRIS} tris, {wf_vcam} leaves entered",
+            "slab_tests_per_live_step": wf["cam_tests"],
+            "at_200k": {k: big_wf[k] for k in ("cam_ms", "cam_bound", "cam_flat_bound", "b_cam", "cam_tests")},
+            "shape": f"{f_samples} sample-rays, {FIELD_TRIS} tris, boxes entered {wf['b_cam']}",
         },
         {
             "name": "wavefront_bounce",
@@ -1135,12 +1241,15 @@ def main() -> int:
             "launches_per_train_step": ftrain_launches["wavefront_bounce"] // 3,
             "max_abs_err": sorted_err,
             "mean_abs_err": sorted_mean,
-            "ms": wf_bounce,
-            "plain_ms": p_bounce,
-            "bound_ms": b_bound,
-            "bound_by": b_by,
+            "ms": wf["bounce_ms"],
+            "plain_ms": wf["p_bounce"],
+            "bound_ms": wf["b_bound"],
+            "bound_by": wf["b_by"],
+            "flat_sweep_bound_ms": wf["b_flat_bound"],
             "library_ms": None,
-            "shape": f"{f_b - 1} launches together: {wf_live} live ray-steps, {wf_vb} leaves entered",
+            "slab_tests_per_live_step": wf["b_tests"],
+            "at_200k": {k: big_wf[k] for k in ("bounce_ms", "b_bound", "b_flat_bound", "live", "b_bounce", "b_tests")},
+            "shape": f"{f_b - 1} launches together: {wf['live']} live ray-steps, boxes entered {wf['b_bounce']}",
         },
         {
             "name": "wavefront_integrate",
@@ -1151,10 +1260,10 @@ def main() -> int:
             "launches_per_train_step": ftrain_launches["wavefront_integrate"] // 3,
             "max_abs_err": sorted_err,
             "mean_abs_err": sorted_mean,
-            "ms": wf_int,
-            "plain_ms": p_int,
-            "bound_ms": int_bound,
-            "bound_by": int_by,
+            "ms": wf["int_ms"],
+            "plain_ms": wf["p_int"],
+            "bound_ms": wf["int_bound"],
+            "bound_by": wf["int_by"],
             "library_ms": None,
             "shape": f"{f_samples} sample-rays",
         },

@@ -1,38 +1,99 @@
-// Nearest hit over Morton-ordered leaves, one ray per thread: the sweep
-// shared by the leaf megakernel (render_kernel.cu, kLeaves) and the sorted
-// per-bounce kernels (wavefront_kernel.cu).
+// Nearest hit over Morton-ordered leaves under a two-level hierarchy of
+// leaf groups, one ray per thread: the sweep shared by the leaf megakernel
+// (render_kernel.cu, kLeaves) and the sorted per-bounce kernels
+// (wavefront_kernel.cu).
 //
 // Replaces the nearest-hit part of the TPU leaf sweep,
 // spectral_tpu/ops/pallas/render_kernel.py :565 _mxu_leaf_sweep, without
 // its MXU score forms: each triangle gets the same exact float32 test as
-// the dense sweep (hit.cuh::tri_hit). The leaf cull is that kernel's
-// _slab_want (:701-724) op for op: slab test against the leaf AABB with
-// the +-1e-20 safe reciprocal (:664-670), enter = max(tmin, 0), and the
-// leaf is entered when tmax >= enter and enter < best_t. A padded leaf's
-// inverted AABB passes that test, so the valid flag (column 6) is checked
-// first.
+// the dense sweep (hit.cuh::tri_hit4). The cull is that kernel's: its leaf
+// gate _slab_want (:701-724) op for op, a slab test against the AABB with
+// the +-1e-20 safe reciprocal (:664-670), enter = max(tmin, 0), and the box
+// is entered when tmax >= enter and enter < best_t; a padded box's inverted
+// AABB passes that test, so its valid flag keeps it out. Above the
+// leaves it keeps the JAX kernel's two gates (:1470-1660, MXU_GROUP8 and
+// MXU_GROUP_L2, on by default): every GROUP_SIZE consecutive leaves form a
+// group and every SUPER_SIZE consecutive groups a super-group, each with the
+// union AABB of its valid members and an any-valid flag (tables built as
+// :2921-2958 builds them, ops/intersect.py::leaf_groups). The sweep walks
+// the super-groups in storage order, enters a super-group's groups only
+// when its own test passes against the ray's best t, and a group's leaves
+// only when the group's test passes.
 //
-// Layout (ops/cuda/render_kernel.py::pack_scene_leaves): tri [NL * K, 18]
-// = the dense row (normal, plane offset, edge functionals, material) and
-// the triangle's original index at column 17, zero rows as padding; leaf
-// [NL, 8] = AABB min xyz, max xyz, valid flag, spare. Both stay in device
-// memory: every lane of a warp that enters a leaf reads the same row at
-// the same time, a broadcast served by L1/L2 (the 10k-triangle pack is
-// 720 KB, the 200k one 14.4 MB, inside the 50 MB L2). A lane enters only
-// the leaves it wants; the warp runs a leaf's triangle loop when any of
-// its lanes does, the others idle.
+// Built for a CUDA thread, not a TPU tile. The TPU kernel tests a box for a
+// tile of rays and runs its members when any ray wants them
+// (pl.when(max(want) > 0)); the same form here, a warp running a box's
+// loop when any lane enters it, measured slower (PERF.md). Here each lane
+// walks its own boxes: the slab tests of a box's kFan children are done
+// together, their loads issued at once (chains of dependent loads are the
+// likely bound of this loop), and the lane then takes the children whose test
+// passed in order, each checked at its turn against the lane's best t
+// (the same test as the flat sweep's, split in two). The lanes of a warp
+// walk their own lists side by side, so a warp's work is its busiest
+// lane's rather than the union of its lanes' boxes. The triangle loop is
+// unrolled by 4 to keep four triangles' loads in flight.
+//
+// Exact, not a heuristic. A group's box contains each member's box, and
+// (b - o) * inv rounds monotonically in b (a subtraction, then a product by
+// the same reciprocal), so on each axis the group's slab interval contains
+// the member's, and so do the [max(tmin, 0), tmax] intervals after the
+// min/max over axes. A leaf that passes (tmax >= enter, enter < best_t)
+// therefore has its group pass with the same best_t, and the best_t a
+// group meets is never smaller than the one its leaves meet later. So the
+// leaves entered, and their order, equal the flat sweep's over the same
+// pack, and so does the hit. The same holds between super-groups and
+// groups.
+//
+// Layout (ops/cuda/render_kernel.py::leaf_tables, built once per render
+// call from the leaf pack of pack_scene_leaves): each triangle as four
+// float4, (n, offset) and (g_k, c_k) for k = 0, 1, 2, the layout of
+// hit.cuh::stage_rows, read with 128-bit loads (a row of the 18-float leaf
+// pack is never 16-byte aligned); an int2 per triangle, (material id,
+// original index), read on a hit; leaf, group and super-group rows of 8
+// floats (min xyz, max xyz, valid flag, spare), read as two float4. The
+// super-group table (196 rows, 6 KB, on the 200k-triangle field) is staged
+// in shared memory by each block; groups (50 KB) and leaves (400 KB) come
+// through L1 and L2 with __ldg. Staging the group table as well, groups of
+// 16 leaves, super-groups of 16 groups and a third level measured no
+// faster (PERF.md).
 //
 // Selection: the lexicographic minimum of (t, original index) over the
 // triangles tested, so a tie goes to the lower original index and the
 // result equals the dense sweep's over the unsorted scene whatever the leaf
 // size or order (ops/intersect.py::nearest_hit_leaves is the plain
 // version).
+//
+// Bound on an H100: FP32 arithmetic, counted from a run's counters:
+// ~25 flops a slab test, for every valid super-group, the groups of each
+// super-group entered and the leaves of each group entered, then 51 flops a
+// triangle of each leaf entered. The loop is one of dependent loads and
+// branches, so it runs far below that bound (most likely latency, not
+// profiled: a bounce launch is about one wave of warps, and its time is its
+// slowest warps' chains of loads); what the hierarchy removes is most of
+// the slab tests of the flat sweep (one per valid leaf a ray-step).
 #pragma once
 
 #include "hit.cuh"
+#include "path.cuh"
 
-constexpr int kLeafTriStride = 18;  // LEAF_TRI_WIDTH
-constexpr int kLeafStride = 8;      // LEAF_PACK_WIDTH
+// The leaf pack and the tables the sweep reads besides.
+struct LeafScene {
+  const float4* rows;   // [n_leaves * leaf_size * 4]
+  const int2* ids;      // [n_leaves * leaf_size]: (material id, original index)
+  const float4* leaf;   // [n_leaves * 2]
+  const float4* group;  // [n_groups * 2]
+  const float4* top;    // [n_tops * 2], the super-groups
+  int n_leaves, leaf_size, n_groups, n_tops;
+};
+
+// Children of a box: leaves a group, groups a super-group
+// (ops/intersect.py::GROUP_SIZE and SUPER_SIZE).
+constexpr int kFan = 8;
+
+// Boxes entered by one ray's sweeps, by level.
+struct SweepCount {
+  int leaves = 0, groups = 0, tops = 0;
+};
 
 struct LeafHit {
   float t;    // distance to the nearest hit, SPT_BIG on a miss
@@ -49,42 +110,140 @@ __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / safe;
 }
 
-// `visits` is incremented once per leaf entered.
+// Bytes of shared memory for the super-group table (stage_tops).
+__host__ __device__ __forceinline__ size_t top_smem(const LeafScene& sc) {
+  return 2 * sizeof(float4) * (size_t)sc.n_tops;
+}
+
+// Copy the super-group table into shared memory, all threads of the block
+// together; the caller synchronises the block before reading.
+__device__ __forceinline__ void stage_tops(float4* __restrict__ s_top,
+                                           const LeafScene& sc) {
+  for (int k = threadIdx.x; k < 2 * sc.n_tops; k += blockDim.x)
+    s_top[k] = __ldg(sc.top + k);
+}
+
+// The slab test of the box of rows a = (min xyz, max x), b = (max yz,
+// valid, spare), op for op as _slab_want: whether the box is valid and the
+// ray's slab interval passes (tmax >= enter), and `enter`, the entry
+// distance. The ray enters the box when it passes and enter < best_t.
+__device__ __forceinline__ bool box_slab(float4 a, float4 b, float ox,
+                                         float oy, float oz, float ix,
+                                         float iy, float iz, float& enter) {
+  float t1 = (a.x - ox) * ix;
+  float t2 = (a.w - ox) * ix;
+  float tmin = fminf(t1, t2), tmax = fmaxf(t1, t2);
+  t1 = (a.y - oy) * iy;
+  t2 = (b.x - oy) * iy;
+  tmin = fmaxf(tmin, fminf(t1, t2));
+  tmax = fminf(tmax, fmaxf(t1, t2));
+  t1 = (a.z - oz) * iz;
+  t2 = (b.y - oz) * iz;
+  tmin = fmaxf(tmin, fminf(t1, t2));
+  tmax = fminf(tmax, fmaxf(t1, t2));
+  enter = fmaxf(tmin, 0.0f);
+  return b.z != 0.0f && tmax >= enter;
+}
+
+// The slab tests of n <= kFan consecutive boxes: bit j of `pass` is box j's
+// box_slab, enter[j] its entry distance.
+struct Slabs {
+  unsigned pass;
+  float enter[kFan];
+
+  // enter[j] for a j known only at run time, kept out of local memory
+  __device__ __forceinline__ float at(int j) const {
+    float e = enter[0];
+#pragma unroll
+    for (int k = 1; k < kFan; ++k) e = j == k ? enter[k] : e;
+    return e;
+  }
+};
+
+// The Slabs of boxes first .. first + n - 1 of a table in shared memory
+// (kShared) or device memory, all their loads issued before the tests.
+template <bool kShared>
+__device__ __forceinline__ Slabs slabs(const float4* __restrict__ table,
+                                       int first, int n, float ox, float oy,
+                                       float oz, float ix, float iy,
+                                       float iz) {
+  Slabs r;
+  r.pass = 0;
+#pragma unroll
+  for (int j = 0; j < kFan; ++j) {
+    r.enter[j] = 0.0f;
+    if (j < n) {
+      const float4* p = table + 2 * (first + j);
+      const float4 a = kShared ? p[0] : __ldg(p);
+      const float4 b = kShared ? p[1] : __ldg(p + 1);
+      if (box_slab(a, b, ox, oy, oz, ix, iy, iz, r.enter[j])) r.pass |= 1u << j;
+    }
+  }
+  return r;
+}
+
+// The hit triangle's normal and material id.
+__device__ __forceinline__ spt::Surface leaf_surface(const LeafScene& sc,
+                                                     int row) {
+  const float4 n = __ldg(sc.rows + 4 * (size_t)row);
+  return spt::Surface{n.x, n.y, n.z, __ldg(&sc.ids[row].x)};
+}
+
+// Test the leaf_size triangles from row r0 and keep the nearest hit.
+__device__ __forceinline__ void leaf_hits(const LeafScene& sc, int r0,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          LeafHit& h) {
+#pragma unroll 4
+  for (int k = 0; k < sc.leaf_size; ++k) {
+    const float4* p = sc.rows + 4 * (size_t)(r0 + k);
+    float tt, nd;
+    if (!tri_hit4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), ox, oy,
+                  oz, dx, dy, dz, tt, nd))
+      continue;
+    const int idx = __ldg(&sc.ids[r0 + k].y);
+    if (tt < h.t || (h.hit && tt == h.t && idx < h.idx)) {
+      h.t = tt;
+      h.row = r0 + k;
+      h.idx = idx;
+      h.hit = true;
+      h.front = nd < 0.0f;
+    }
+  }
+}
+
+// The nearest hit of one ray; `cnt` is incremented once per box entered.
+// Each loop takes the set bits of a Slabs in ascending order, so the boxes
+// are visited in storage order, each entered when its entry lies nearer
+// than the best hit at its turn.
 __device__ __forceinline__ LeafHit nearest_hit_leaves(
-    const float* __restrict__ tri, const float* __restrict__ leaf,
-    int n_leaves, int leaf_size, float ox, float oy, float oz, float dx,
-    float dy, float dz, int& visits) {
+    const LeafScene& sc, const float4* __restrict__ s_top, float ox,
+    float oy, float oz, float dx, float dy, float dz, SweepCount& cnt) {
   LeafHit h{SPT_BIG, 0, 0, false, false};
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  for (int l = 0; l < n_leaves; ++l) {
-    const float* lf = leaf + (size_t)l * kLeafStride;
-    if (__ldg(lf + 6) == 0.0f) continue;
-    float t1 = (__ldg(lf + 0) - ox) * ix;
-    float t2 = (__ldg(lf + 3) - ox) * ix;
-    float tmin = fminf(t1, t2), tmax = fmaxf(t1, t2);
-    t1 = (__ldg(lf + 1) - oy) * iy;
-    t2 = (__ldg(lf + 4) - oy) * iy;
-    tmin = fmaxf(tmin, fminf(t1, t2));
-    tmax = fminf(tmax, fmaxf(t1, t2));
-    t1 = (__ldg(lf + 2) - oz) * iz;
-    t2 = (__ldg(lf + 5) - oz) * iz;
-    tmin = fmaxf(tmin, fminf(t1, t2));
-    tmax = fminf(tmax, fmaxf(t1, t2));
-    const float enter = fmaxf(tmin, 0.0f);
-    if (!(tmax >= enter && enter < h.t)) continue;
-    ++visits;
-    const int r0 = l * leaf_size;
-    for (int k = 0; k < leaf_size; ++k) {
-      const float* p = tri + (size_t)(r0 + k) * kLeafTriStride;
-      float tt, nd;
-      if (!tri_hit(p, ox, oy, oz, dx, dy, dz, tt, nd)) continue;
-      const int idx = (int)__ldg(p + 17);
-      if (tt < h.t || (h.hit && tt == h.t && idx < h.idx)) {
-        h.t = tt;
-        h.row = r0 + k;
-        h.idx = idx;
-        h.hit = true;
-        h.front = nd < 0.0f;
+  for (int s0 = 0; s0 < sc.n_tops; s0 += kFan) {
+    const Slabs ts = slabs<true>(s_top, s0, min(kFan, sc.n_tops - s0), ox,
+                                 oy, oz, ix, iy, iz);
+    for (unsigned mt = ts.pass; mt; mt &= mt - 1) {
+      const int t = __ffs(mt) - 1;
+      if (!(ts.at(t) < h.t)) continue;
+      ++cnt.tops;
+      const int g0 = (s0 + t) * kFan;
+      const Slabs gs = slabs<false>(sc.group, g0, min(kFan, sc.n_groups - g0),
+                                    ox, oy, oz, ix, iy, iz);
+      for (unsigned mg = gs.pass; mg; mg &= mg - 1) {
+        const int g = __ffs(mg) - 1;
+        if (!(gs.at(g) < h.t)) continue;
+        ++cnt.groups;
+        const int l0 = (g0 + g) * kFan;
+        const Slabs ls = slabs<false>(sc.leaf, l0, min(kFan, sc.n_leaves - l0),
+                                      ox, oy, oz, ix, iy, iz);
+        for (unsigned ml = ls.pass; ml; ml &= ml - 1) {
+          const int l = __ffs(ml) - 1;
+          if (!(ls.at(l) < h.t)) continue;
+          ++cnt.leaves;
+          leaf_hits(sc, (l0 + l) * sc.leaf_size, ox, oy, oz, dx, dy, dz, h);
+        }
       }
     }
   }

@@ -152,11 +152,6 @@ struct Surface {
   int m;
 };
 
-// The Surface of a packed row (normal at 0:3, material id at column 16).
-__device__ __forceinline__ Surface row_surface(const float* tp) {
-  return Surface{tp[0], tp[1], tp[2], (int)tp[16]};
-}
-
 // One bounce of a live path after its nearest hit (hit, front, t and the
 // hit triangle's surface sf, read only on a hit): material fetch, spectral
 // weight, scatter and termination (_scatter_shade). Returns the bounce's

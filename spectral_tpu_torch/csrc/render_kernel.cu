@@ -97,14 +97,20 @@
 // render_leaves_residuals_launch) replaces the same TPU kernel with
 // use_bvh=True, whose nearest hit is _mxu_leaf_sweep :565, launched by the
 // same two functions with a leaf pack (:2068-2088). Only the sweep
-// differs: tri [NL * K, 18] and leaf [NL, 8] stay in device memory, and a
-// ray tests the K triangles of each leaf it enters (leaf_sweep.cuh). It
-// keeps the lock-step loop and the default launch bounds, which measured
-// faster for it (PERF.md). Its bound is FP32 arithmetic as well,
-// counted from its data: per live ray-step ~340 flops of shading plus ~25
-// per valid leaf's slab test, 51 per triangle of an entered leaf, and ~340
-// per sample; the `visits` output counts the leaves each pixel's rays
-// entered.
+// differs: the leaf scene stays in device memory apart from its
+// super-group table, which each block stages in shared memory, and a ray
+// tests the K triangles of each leaf it enters under the group hierarchy
+// (leaf_sweep.cuh, shared with the sorted kernels). It keeps the lock-step
+// loop, which measured faster for it (PERF.md), and asks for 4 blocks an
+// SM: at the default bounds the group-cull sweep built it to 182-183
+// registers (2 blocks), and the cap of 128 measured faster. Its bound is
+// FP32 arithmetic as well,
+// counted from its data:
+// per live ray-step ~340 flops of shading plus ~25 per slab test (every
+// valid super-group, the groups of the super-groups entered, the leaves of
+// the groups entered), 51 per triangle of an entered leaf, and ~340 per
+// sample; the `visits` outputs count the leaves, groups and super-groups
+// each pixel's rays entered.
 //
 // The camera ray, the curves, the shading and the XYZ tail are path.cuh's,
 // shared with the sorted per-bounce kernels (wavefront_kernel.cu).
@@ -135,14 +141,15 @@ constexpr int kBlock = 128;
 // next sample as soon as its path ends (else together with its warp once
 // every lane's path has ended); whether the grid is persistent (one wave of
 // blocks whose lanes take whole pixels from a shared counter); and how many
-// blocks an SM must hold at once (6 or 8 blocks of 128 threads cap a thread
-// at 80 or 64 registers, the compiler spilling the rest to local memory).
+// blocks an SM must hold at once (4, 6 or 8 blocks of 128 threads cap a
+// thread at 128, 80 or 64 registers, the compiler spilling the rest to
+// local memory).
 template <bool kSaveResiduals, bool kLeaves>
 constexpr bool kRegenerate = !kLeaves;
 template <bool kSaveResiduals, bool kLeaves>
 constexpr bool kPersistent = !kLeaves && !kSaveResiduals;
 template <bool kSaveResiduals, bool kLeaves>
-constexpr int kMinBlocks = kLeaves ? 1 : kSaveResiduals ? 8 : 6;
+constexpr int kMinBlocks = kLeaves ? 4 : kSaveResiduals ? 8 : 6;
 
 // Path residuals of the fused backward (ops/cuda/grad_kernel.py), in the JAX
 // kernel's sample-major, ray-minor layout: hero[s][i], n_valid[s][i] (after
@@ -156,11 +163,12 @@ struct Residuals {
   int* matres;
 };
 
-// The leaf pack of the kLeaves form.
-struct Leaves {
-  const float* leaf;
-  int n_leaves;
-  int leaf_size;
+// The kLeaves form's per-pixel counts of the boxes its sweeps entered, by
+// level (leaves, groups, super-groups); each may be null.
+struct BoxCounts {
+  int* leaves;
+  int* groups;
+  int* tops;
 };
 
 // On the persistent grid, the lanes in `need` each take the next pixel,
@@ -177,21 +185,23 @@ __device__ __forceinline__ int take_pixel(int* next_pixel, unsigned need,
 template <bool kSaveResiduals, bool kLeaves>
 __global__ void __launch_bounds__(kBlock, (kMinBlocks<kSaveResiduals, kLeaves>)) render_kernel(
     const float* __restrict__ cam, uint32_t seed,
-    const float* __restrict__ tri_pack, int n_tris, Leaves lv,
+    const float* __restrict__ tri_pack, int n_tris, LeafScene lv,
     const float* __restrict__ mat_pack, int n_mats,
     const float* __restrict__ tables, const float* __restrict__ px,
     const float* __restrict__ py, int n, int image_width, int spp, int bounces,
     const float* __restrict__ rand, float* __restrict__ xyz,
-    int* __restrict__ steps, int* __restrict__ visits,
+    int* __restrict__ steps, BoxCounts visits,
     int* __restrict__ warp_steps, int* __restrict__ next_pixel,
     Residuals res) {
   extern __shared__ float4 smem[];
-  // the dense scene is restaged as float4 rows; the leaf pack stays in
-  // device memory
-  float4* s_rows = smem;
+  // the dense scene is restaged as float4 rows; of the leaf scene only the
+  // super-group table is staged, the rest stays in device memory
+  float4* s_top = smem;
+  float4* s_rows = s_top + (kLeaves ? top_smem(lv) / sizeof(float4) : 0);
   int* s_mid = reinterpret_cast<int*>(s_rows + (kLeaves ? 0 : 4 * n_tris));
   float* s_mat = reinterpret_cast<float*>(s_mid + (kLeaves ? 0 : n_tris));
   float* s_tab = s_mat + n_mats * kMatStride;
+  if constexpr (kLeaves) stage_tops(s_top, lv);
   if constexpr (!kLeaves) stage_rows(s_rows, s_mid, tri_pack, n_tris, kTriStride);
   stage(s_mat, mat_pack, n_mats * kMatStride);
   stage(s_tab, tables, 5 * kSamples);
@@ -207,7 +217,8 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocks<kSaveResiduals, kLeaves>))
   const int n_draws = 5 + 3 * bounces;
   float pxi, pyi, accx, accy, accz;
   uint32_t key_pixel;
-  int live_steps, leaf_visits, s, b = 0;  // s: the sample in flight, b: its bounce
+  int live_steps, s, b = 0;  // s: the sample in flight, b: its bounce
+  SweepCount boxes;  // the leaf form's boxes entered
   int sweeps = 0;
   bool tracing = false;
   Draws u;
@@ -218,14 +229,19 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocks<kSaveResiduals, kLeaves>))
     pyi = py[i];
     key_pixel = pixel_key(seed, pxi, pyi, image_width);
     accx = accy = accz = 0.0f;
-    live_steps = leaf_visits = s = 0;
+    live_steps = s = 0;
+    boxes = SweepCount{};
   };
   auto close_pixel = [&]() {
     xyz[3 * i] = accx;
     xyz[3 * i + 1] = accy;
     xyz[3 * i + 2] = accz;
     if (steps) steps[i] = live_steps;
-    if (kLeaves && visits) visits[i] = leaf_visits;
+    if constexpr (kLeaves) {
+      if (visits.leaves) visits.leaves[i] = boxes.leaves;
+      if (visits.groups) visits.groups[i] = boxes.groups;
+      if (visits.tops) visits.tops[i] = boxes.tops;
+    }
   };
   open_pixel();
   for (;;) {
@@ -272,11 +288,11 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocks<kSaveResiduals, kLeaves>))
     float t;
     Surface sf{};
     if constexpr (kLeaves) {
-      const LeafHit h = nearest_hit_leaves(
-          tri_pack, lv.leaf, lv.n_leaves, lv.leaf_size, st.r.ox, st.r.oy,
-          st.r.oz, st.r.dx, st.r.dy, st.r.dz, leaf_visits);
+      const LeafHit h = nearest_hit_leaves(lv, s_top, st.r.ox, st.r.oy,
+                                           st.r.oz, st.r.dx, st.r.dy, st.r.dz,
+                                           boxes);
       hit = h.hit, front = h.front, t = h.t;
-      if (hit) sf = row_surface(tri_pack + (size_t)h.row * kLeafTriStride);
+      if (hit) sf = leaf_surface(lv, h.row);
     } else {
       const NearestHit h = nearest_hit_rows(s_rows, n_tris, st.r.ox, st.r.oy,
                                             st.r.oz, st.r.dx, st.r.dy, st.r.dz);
@@ -317,15 +333,24 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocks<kSaveResiduals, kLeaves>))
 
 template <bool kSaveResiduals, bool kLeaves>
 int launch(const float* cam, uint32_t seed, const float* tri_pack, int n_tris,
-           Leaves lv, const float* mat_pack, int n_mats, const float* tables,
-           const float* px, const float* py, int n, int image_width, int spp,
-           int bounces, const float* rand, float* xyz, int* steps, int* visits,
-           int* warp_steps, int* next_pixel, Residuals res, void* stream) {
+           const LeafScene& lv, const float* mat_pack, int n_mats,
+           const float* tables, const float* px, const float* py, int n,
+           int image_width, int spp, int bounces, const float* rand,
+           float* xyz, int* steps, BoxCounts visits, int* warp_steps,
+           int* next_pixel, Residuals res, void* stream) {
   if (n <= 0) return 0;
-  // float4 rows and int material ids of the dense scene, then the floats
+  // the super-group table of the leaf scene, or the float4 rows and int
+  // material ids of the dense scene; then the floats
   const size_t smem =
-      (kLeaves ? 0 : (size_t)n_tris * (4 * sizeof(float4) + sizeof(int))) +
+      (kLeaves ? top_smem(lv)
+               : (size_t)n_tris * (4 * sizeof(float4) + sizeof(int))) +
       sizeof(float) * ((size_t)n_mats * kMatStride + 5 * kSamples);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        render_kernel<kSaveResiduals, kLeaves>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   int grid = (n + kBlock - 1) / kBlock;
   if (kPersistent<kSaveResiduals, kLeaves>) {
     // one wave: as many blocks as the card holds at once
@@ -343,6 +368,17 @@ int launch(const float* cam, uint32_t seed, const float* tri_pack, int n_tris,
           image_width, spp, bounces, rand, xyz, steps, visits, warp_steps,
           next_pixel, res);
   return (int)cudaGetLastError();
+}
+
+LeafScene leaf_scene(const float* rows, const int* ids, const float* leaf,
+                     const float* group, const float* top, int n_leaves,
+                     int leaf_size, int n_groups, int n_tops) {
+  return LeafScene{reinterpret_cast<const float4*>(rows),
+                   reinterpret_cast<const int2*>(ids),
+                   reinterpret_cast<const float4*>(leaf),
+                   reinterpret_cast<const float4*>(group),
+                   reinterpret_cast<const float4*>(top),
+                   n_leaves, leaf_size, n_groups, n_tops};
 }
 
 }  // namespace
@@ -363,10 +399,10 @@ extern "C" int render_launch(const float* cam, uint32_t seed,
                              int bounces, const float* rand, float* xyz,
                              int* steps, int* warp_steps, int* next_pixel,
                              void* stream) {
-  return launch<false, false>(cam, seed, tri_pack, n_tris, Leaves{}, mat_pack,
-                              n_mats, tables, px, py, n, image_width, spp,
-                              bounces, rand, xyz, steps, nullptr, warp_steps,
-                              next_pixel, Residuals{}, stream);
+  return launch<false, false>(cam, seed, tri_pack, n_tris, LeafScene{},
+                              mat_pack, n_mats, tables, px, py, n, image_width,
+                              spp, bounces, rand, xyz, steps, BoxCounts{},
+                              warp_steps, next_pixel, Residuals{}, stream);
 }
 
 // render_launch's arguments, without next_pixel, plus the residual outputs:
@@ -378,41 +414,50 @@ extern "C" int render_residuals_launch(
     const float* py, int n, int image_width, int spp, int bounces,
     const float* rand, float* xyz, int* steps, int* warp_steps, float* hero,
     float* n_valid, float* power, int* matres, void* stream) {
-  return launch<true, false>(cam, seed, tri_pack, n_tris, Leaves{}, mat_pack,
-                             n_mats, tables, px, py, n, image_width, spp,
-                             bounces, rand, xyz, steps, nullptr, warp_steps,
-                             nullptr, Residuals{hero, n_valid, power, matres},
-                             stream);
+  return launch<true, false>(cam, seed, tri_pack, n_tris, LeafScene{},
+                             mat_pack, n_mats, tables, px, py, n, image_width,
+                             spp, bounces, rand, xyz, steps, BoxCounts{},
+                             warp_steps, nullptr,
+                             Residuals{hero, n_valid, power, matres}, stream);
 }
 
-// The leaf form: tri_pack [n_leaves * leaf_size, 18], leaf_pack
-// [n_leaves, 8]; visits [n] int32 out (leaves entered) or null; the rest
-// as render_launch, without warp_steps.
+// The leaf form: the leaf scene as the sorted kernels take it
+// (wavefront_kernel.cu: rows, ids, leaf, group, top and their sizes);
+// visits, group_visits, top_visits [n] int32 out (leaves, groups and
+// super-groups entered) or null; the rest as render_launch, without
+// warp_steps.
 extern "C" int render_leaves_launch(
-    const float* cam, uint32_t seed, const float* tri_pack,
-    const float* leaf_pack, int n_leaves, int leaf_size, const float* mat_pack,
-    int n_mats, const float* tables, const float* px, const float* py, int n,
-    int image_width, int spp, int bounces, const float* rand, float* xyz,
-    int* steps, int* visits, void* stream) {
-  return launch<false, true>(cam, seed, tri_pack, n_leaves * leaf_size,
-                             Leaves{leaf_pack, n_leaves, leaf_size}, mat_pack,
-                             n_mats, tables, px, py, n, image_width, spp,
-                             bounces, rand, xyz, steps, visits, nullptr,
-                             nullptr, Residuals{}, stream);
+    const float* cam, uint32_t seed, const float* rows, const int* ids,
+    const float* leaf, const float* group, const float* top, int n_leaves,
+    int leaf_size, int n_groups, int n_tops,
+    const float* mat_pack, int n_mats, const float* tables, const float* px,
+    const float* py, int n, int image_width, int spp, int bounces,
+    const float* rand, float* xyz, int* steps, int* visits, int* group_visits,
+    int* top_visits, void* stream) {
+  return launch<false, true>(
+      cam, seed, nullptr, n_leaves * leaf_size,
+      leaf_scene(rows, ids, leaf, group, top, n_leaves, leaf_size, n_groups,
+                 n_tops),
+      mat_pack, n_mats, tables, px, py, n, image_width, spp, bounces, rand, xyz,
+      steps, BoxCounts{visits, group_visits, top_visits}, nullptr, nullptr,
+      Residuals{}, stream);
 }
 
 // render_leaves_launch's arguments plus render_residuals_launch's outputs.
 extern "C" int render_leaves_residuals_launch(
-    const float* cam, uint32_t seed, const float* tri_pack,
-    const float* leaf_pack, int n_leaves, int leaf_size, const float* mat_pack,
-    int n_mats, const float* tables, const float* px, const float* py, int n,
-    int image_width, int spp, int bounces, const float* rand, float* xyz,
-    int* steps, int* visits, float* hero, float* n_valid, float* power,
-    int* matres, void* stream) {
-  return launch<true, true>(cam, seed, tri_pack, n_leaves * leaf_size,
-                            Leaves{leaf_pack, n_leaves, leaf_size}, mat_pack,
-                            n_mats, tables, px, py, n, image_width, spp,
-                            bounces, rand, xyz, steps, visits, nullptr,
-                            nullptr, Residuals{hero, n_valid, power, matres},
-                            stream);
+    const float* cam, uint32_t seed, const float* rows, const int* ids,
+    const float* leaf, const float* group, const float* top, int n_leaves,
+    int leaf_size, int n_groups, int n_tops,
+    const float* mat_pack, int n_mats, const float* tables, const float* px,
+    const float* py, int n, int image_width, int spp, int bounces,
+    const float* rand, float* xyz, int* steps, int* visits, int* group_visits,
+    int* top_visits, float* hero, float* n_valid, float* power, int* matres,
+    void* stream) {
+  return launch<true, true>(
+      cam, seed, nullptr, n_leaves * leaf_size,
+      leaf_scene(rows, ids, leaf, group, top, n_leaves, leaf_size, n_groups,
+                 n_tops),
+      mat_pack, n_mats, tables, px, py, n, image_width, spp, bounces, rand, xyz,
+      steps, BoxCounts{visits, group_visits, top_visits}, nullptr, nullptr,
+      Residuals{hero, n_valid, power, matres}, stream);
 }

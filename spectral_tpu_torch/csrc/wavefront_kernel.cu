@@ -32,13 +32,21 @@
 // thread reads and writes its own column only.
 //
 // Bound on an H100: FP32 arithmetic, as the leaf megakernel's (per live
-// ray-step ~340 flops of shading, ~25 per valid leaf's slab test and 51 per
-// triangle of an entered leaf); the state adds 2 * 68 bytes per live
-// ray-step (read, written) and the integration reads 40 bytes and writes 12
-// per ray, far below it. The `steps` and `visits` outputs ([spp, n] int32,
-// indexed by orig) count each ray's live ray-steps and entered leaves.
-// Design, right and simple first: no persistent threads, no queue of live
-// rays; a dead ray's thread returns at once after writing its residual 0.
+// ray-step ~340 flops of shading and the sweep's slab and triangle tests,
+// leaf_sweep.cuh); the state adds 2 * 68 bytes per live ray-step (read,
+// written) and the integration reads 40 bytes and writes 12 per ray, far
+// below it. The `steps`, `visits`, `group_visits` and `top_visits` outputs
+// ([spp, n] int32, indexed by orig) count each ray's live ray-steps and the
+// leaves, groups and super-groups its sweeps entered. Design, right and
+// simple first: no persistent threads, no queue of live rays; a dead ray's
+// thread returns at once after writing its residual 0. The sweep's
+// hierarchy (leaf_sweep.cuh) is what the tracing kernels' time goes to:
+// each block stages the super-group table in shared memory beside the
+// materials and curves, and reads triangles as 16-byte rows. Under
+// __launch_bounds__(kBlock) ptxas keeps the two tracing kernels at 72-96
+// registers and spills 96-236 bytes to L1; without the bounds, or with a
+// minimum of one block an SM, they built to 121-140 registers, and with
+// minimums of 6 or 8 blocks to 80 or 64; each measured slower (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,9 +64,7 @@ constexpr int kRowHero = 6, kRowAlive = 7, kRowNValid = 8, kRowPrev = 9,
 
 // The scene and draws every launch reads.
 struct Scene {
-  const float* tri;   // [n_leaves * leaf_size, 18]
-  const float* leaf;  // [n_leaves, 8]
-  int n_leaves, leaf_size;
+  LeafScene lv;
   const float* mat;  // [n_mats, 16]
   int n_mats;
   const float* tables;  // [5, 95]
@@ -69,8 +75,19 @@ struct Scene {
   uint32_t seed;
 };
 
-__device__ __forceinline__ void stage_scene(const Scene& sc, float* s_mat,
-                                            float* s_tab) {
+// Each per-ray counter output, or null.
+struct Counters {
+  int* steps;
+  int* visits;
+  int* group_visits;
+  int* top_visits;
+};
+
+// Shared memory: the super-group table (float4 rows), the materials, the
+// curves.
+__device__ __forceinline__ void stage_scene(const Scene& sc, float4* s_top,
+                                            float* s_mat, float* s_tab) {
+  stage_tops(s_top, sc.lv);
   stage(s_mat, sc.mat, sc.n_mats * kMatStride);
   stage(s_tab, sc.tables, 5 * kSamples);
   __syncthreads();
@@ -84,15 +101,23 @@ __device__ __forceinline__ Draws ray_draws(const Scene& sc, int s, int p) {
 // Nearest hit over the leaves, then shade: one bounce of a live path.
 // Returns its material residual.
 __device__ __forceinline__ int trace(const Scene& sc, Path& st,
-                                     const float* s_mat, const Curves& cv,
-                                     const Draws& u, int b, int& visits) {
-  const LeafHit h = nearest_hit_leaves(sc.tri, sc.leaf, sc.n_leaves,
-                                       sc.leaf_size, st.r.ox, st.r.oy, st.r.oz,
-                                       st.r.dx, st.r.dy, st.r.dz, visits);
-  const Surface sf =
-      h.hit ? row_surface(sc.tri + (size_t)h.row * kLeafTriStride) : Surface{};
+                                     const float4* s_top, const float* s_mat,
+                                     const Curves& cv, const Draws& u, int b,
+                                     SweepCount& cnt) {
+  const LeafHit h = nearest_hit_leaves(sc.lv, s_top, st.r.ox, st.r.oy,
+                                       st.r.oz, st.r.dx, st.r.dy, st.r.dz, cnt);
+  const Surface sf = h.hit ? leaf_surface(sc.lv, h.row) : Surface{};
   return shade(st, h.hit, h.front, h.t, sf, s_mat, cv, u(3 + 3 * b),
                u(4 + 3 * b), u(5 + 3 * b));
+}
+
+// The parts of a tracing kernel's shared memory (stage_scene).
+__device__ __forceinline__ void scene_smem_parts(const Scene& sc, float4* smem,
+                                                 float4*& s_top, float*& s_mat,
+                                                 float*& s_tab) {
+  s_top = smem;
+  s_mat = reinterpret_cast<float*>(smem + top_smem(sc.lv) / sizeof(float4));
+  s_tab = s_mat + sc.n_mats * kMatStride;
 }
 
 __device__ __forceinline__ void store_state(float* __restrict__ state,
@@ -112,15 +137,26 @@ __device__ __forceinline__ void store_state(float* __restrict__ state,
   for (int w = 0; w < kW; ++w) state[(kRowPower + w) * nrays + i] = st.power[w];
 }
 
+// Count a ray's sweep into its counters at index o (first: it is the
+// ray's first sweep, so the counters are set, not added to).
+__device__ __forceinline__ void count(const Counters& c, size_t o, bool first,
+                                      const SweepCount& n) {
+  if (c.steps) c.steps[o] = first ? 1 : c.steps[o] + 1;
+  if (c.visits) c.visits[o] = first ? n.leaves : c.visits[o] + n.leaves;
+  if (c.group_visits)
+    c.group_visits[o] = first ? n.groups : c.group_visits[o] + n.groups;
+  if (c.top_visits) c.top_visits[o] = first ? n.tops : c.top_visits[o] + n.tops;
+}
+
 template <bool kSaveResiduals>
 __global__ void __launch_bounds__(kBlock) camera_bounce_kernel(
     const float* __restrict__ cam, Scene sc, float* __restrict__ state,
-    int* __restrict__ matres, int* __restrict__ steps,
-    int* __restrict__ visits) {
-  extern __shared__ float smem[];
-  float* s_mat = smem;
-  float* s_tab = s_mat + sc.n_mats * kMatStride;
-  stage_scene(sc, s_mat, s_tab);
+    int* __restrict__ matres, Counters cnt) {
+  extern __shared__ float4 smem[];
+  float4* s_top;
+  float *s_mat, *s_tab;
+  scene_smem_parts(sc, smem, s_top, s_mat, s_tab);
+  stage_scene(sc, s_top, s_mat, s_tab);
   const size_t nrays = (size_t)sc.spp * sc.n;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if ((size_t)r >= nrays) return;
@@ -132,23 +168,22 @@ __global__ void __launch_bounds__(kBlock) camera_bounce_kernel(
   const float hero = hero_wavelength(u(2));
   Curves cv;
   hero_curves(hero, s_tab, cv);
-  int n_visits = 0;
-  const int mres = trace(sc, st, s_mat, cv, u, 0, n_visits);
+  SweepCount n;
+  const int mres = trace(sc, st, s_top, s_mat, cv, u, 0, n);
   if constexpr (kSaveResiduals) matres[(size_t)s * sc.bounces * sc.n + p] = mres;
-  if (steps) steps[r] = 1;
-  if (visits) visits[r] = n_visits;
+  count(cnt, r, true, n);
   store_state(state, nrays, r, st, hero);
 }
 
 template <bool kSaveResiduals>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(
     Scene sc, int b, float* __restrict__ state, const int* __restrict__ orig,
-    int* __restrict__ matres, int* __restrict__ steps,
-    int* __restrict__ visits) {
-  extern __shared__ float smem[];
-  float* s_mat = smem;
-  float* s_tab = s_mat + sc.n_mats * kMatStride;
-  stage_scene(sc, s_mat, s_tab);
+    int* __restrict__ matres, Counters cnt) {
+  extern __shared__ float4 smem[];
+  float4* s_top;
+  float *s_mat, *s_tab;
+  scene_smem_parts(sc, smem, s_top, s_mat, s_tab);
+  stage_scene(sc, s_top, s_mat, s_tab);
   const size_t nrays = (size_t)sc.spp * sc.n;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if ((size_t)i >= nrays) return;
@@ -171,11 +206,10 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(
   const float hero = state[kRowHero * nrays + i];
   Curves cv;
   hero_curves(hero, s_tab, cv);
-  int n_visits = 0;
-  const int mres = trace(sc, st, s_mat, cv, ray_draws(sc, s, p), b, n_visits);
+  SweepCount n;
+  const int mres = trace(sc, st, s_top, s_mat, cv, ray_draws(sc, s, p), b, n);
   if constexpr (kSaveResiduals) matres[mi] = mres;
-  if (steps) steps[o] += 1;
-  if (visits) visits[o] += n_visits;
+  count(cnt, o, false, n);
   store_state(state, nrays, i, st, hero);
 }
 
@@ -218,58 +252,91 @@ __global__ void __launch_bounds__(kBlock) integrate_kernel(
 
 int grid_of(size_t nrays) { return (int)((nrays + kBlock - 1) / kBlock); }
 
-size_t scene_smem(int n_mats) {
-  return sizeof(float) * ((size_t)n_mats * kMatStride + 5 * kSamples);
+// Shared memory of a tracing kernel's block (stage_scene); above the
+// default 48 KB a kernel must be allowed it first.
+template <typename Kernel>
+cudaError_t scene_smem(Kernel kernel, const Scene& sc, size_t& smem) {
+  smem = top_smem(sc.lv) +
+         sizeof(float) * ((size_t)sc.n_mats * kMatStride + 5 * kSamples);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+Scene make_scene(const float* rows, const int* ids, const float* leaf,
+                 const float* group, const float* top, int n_leaves,
+                 int leaf_size, int n_groups, int n_tops, const float* mat,
+                 int n_mats, const float* tables, const float* px,
+                 const float* py, int n, int image_width, int spp, int bounces,
+                 const float* rand, uint32_t seed) {
+  const LeafScene lv{reinterpret_cast<const float4*>(rows),
+                     reinterpret_cast<const int2*>(ids),
+                     reinterpret_cast<const float4*>(leaf),
+                     reinterpret_cast<const float4*>(group),
+                     reinterpret_cast<const float4*>(top),
+                     n_leaves, leaf_size, n_groups, n_tops};
+  return Scene{lv, mat, n_mats, tables, px, py, n, image_width, spp, bounces,
+               rand, seed};
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, const Scene& sc, void* stream, Args... args) {
+  const size_t nrays = (size_t)sc.spp * sc.n;
+  if (nrays == 0) return 0;
+  size_t smem;
+  const cudaError_t e = scene_smem(kernel, sc, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid_of(nrays), kBlock, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Scene arguments of the two tracing kernels: tri [n_leaves * leaf_size,
-// 18], leaf [n_leaves, 8], mat [n_mats, 16], tables [5, 95], px/py [n] f32,
-// rand [spp, 5 + 3 * bounces, n] f32 or null (hash draws of `seed`).
-// state [17, spp * n] f32; matres [spp, bounces, n] int32 or null (no
-// residuals); steps, visits [spp, n] int32 or null. Each launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
-extern "C" int wavefront_camera_launch(
-    const float* cam, uint32_t seed, const float* tri, const float* leaf,
-    int n_leaves, int leaf_size, const float* mat, int n_mats,
-    const float* tables, const float* px, const float* py, int n,
-    int image_width, int spp, int bounces, const float* rand, float* state,
-    int* matres, int* steps, int* visits, void* stream) {
-  const size_t nrays = (size_t)spp * n;
-  if (nrays == 0) return 0;
-  const Scene sc{tri, leaf, n_leaves, leaf_size, mat, n_mats, tables, px, py,
-                 n, image_width, spp, bounces, rand, seed};
-  const size_t smem = scene_smem(n_mats);
+// The leaf scene of the two tracing kernels (ops/cuda/render_kernel.py::
+// leaf_tables): rows [n_leaves * leaf_size, 16] f32 (four float4 a
+// triangle), ids [n_leaves * leaf_size, 2] int32 (material, original
+// index), leaf [n_leaves, 8], group [n_groups, 8], top [n_tops, 8] f32
+// (super-groups), every table 16-byte aligned; kFan (8) leaves a group and
+// groups a super-group. Then mat [n_mats, 16], tables [5, 95],
+// px/py [n] f32, rand [spp, 5 + 3 * bounces, n] f32 or null (hash draws of
+// `seed`). state [17, spp * n] f32; matres [spp, bounces, n] int32 or null
+// (no residuals); steps, visits, group_visits, top_visits [spp, n] int32 or
+// null. Each launches on `stream` and returns its CUDA error (0 =
+// launched).
+#define SPT_SCENE_PARAMS                                                      \
+  const float *rows, const int *ids, const float *leaf, const float *group,   \
+      const float *top, int n_leaves, int leaf_size, int n_groups, int n_tops, \
+      const float *mat, int n_mats,                                          \
+      const float *tables, const float *px, const float *py, int n,          \
+      int image_width, int spp, int bounces, const float *rand
+#define SPT_SCENE_ARGS                                                     \
+  rows, ids, leaf, group, top, n_leaves, leaf_size, n_groups, n_tops, mat, \
+      n_mats, tables, px, py, n, image_width, spp, bounces, rand
+
+extern "C" int wavefront_camera_launch(const float* cam, uint32_t seed,
+                                       SPT_SCENE_PARAMS, float* state,
+                                       int* matres, int* steps, int* visits,
+                                       int* group_visits, int* top_visits,
+                                       void* stream) {
+  const Scene sc = make_scene(SPT_SCENE_ARGS, seed);
+  const Counters cnt{steps, visits, group_visits, top_visits};
   if (matres)
-    camera_bounce_kernel<true><<<grid_of(nrays), kBlock, smem, (cudaStream_t)stream>>>(
-        cam, sc, state, matres, steps, visits);
-  else
-    camera_bounce_kernel<false><<<grid_of(nrays), kBlock, smem, (cudaStream_t)stream>>>(
-        cam, sc, state, matres, steps, visits);
-  return (int)cudaGetLastError();
+    return launch(camera_bounce_kernel<true>, sc, stream, cam, sc, state, matres, cnt);
+  return launch(camera_bounce_kernel<false>, sc, stream, cam, sc, state, matres, cnt);
 }
 
 // Bounce b >= 1 of the state in sorted order; orig [spp * n] int32 is each
 // column's original sample-ray index.
-extern "C" int wavefront_bounce_launch(
-    uint32_t seed, const float* tri, const float* leaf, int n_leaves,
-    int leaf_size, const float* mat, int n_mats, const float* tables,
-    const float* px, const float* py, int n, int image_width, int spp,
-    int bounces, int b, const float* rand, float* state, const int* orig,
-    int* matres, int* steps, int* visits, void* stream) {
-  const size_t nrays = (size_t)spp * n;
-  if (nrays == 0) return 0;
-  const Scene sc{tri, leaf, n_leaves, leaf_size, mat, n_mats, tables, px, py,
-                 n, image_width, spp, bounces, rand, seed};
-  const size_t smem = scene_smem(n_mats);
+extern "C" int wavefront_bounce_launch(uint32_t seed, SPT_SCENE_PARAMS, int b,
+                                       float* state, const int* orig,
+                                       int* matres, int* steps, int* visits,
+                                       int* group_visits, int* top_visits,
+                                       void* stream) {
+  const Scene sc = make_scene(SPT_SCENE_ARGS, seed);
+  const Counters cnt{steps, visits, group_visits, top_visits};
   if (matres)
-    bounce_kernel<true><<<grid_of(nrays), kBlock, smem, (cudaStream_t)stream>>>(
-        sc, b, state, orig, matres, steps, visits);
-  else
-    bounce_kernel<false><<<grid_of(nrays), kBlock, smem, (cudaStream_t)stream>>>(
-        sc, b, state, orig, matres, steps, visits);
-  return (int)cudaGetLastError();
+    return launch(bounce_kernel<true>, sc, stream, sc, b, state, orig, matres, cnt);
+  return launch(bounce_kernel<false>, sc, stream, sc, b, state, orig, matres, cnt);
 }
 
 // XYZ [spp * n, 3] f32 of each sample-ray in original order; with hero

@@ -41,6 +41,10 @@ NVCC_FLAGS = (
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+# the leaf scene of the leaf sweep's entry points (render_kernel.py::
+# leaf_launch_args): rows, ids, leaf, group, super-group tables; leaves,
+# leaf size, groups, super-groups
+LEAF_SCENE = [P, P, P, P, P, I, I, I, I]
 
 
 def find_nvcc() -> str:
@@ -158,11 +162,11 @@ RENDER_RESIDUALS = Kernel(
 )
 RENDER_LEAVES = Kernel(
     "render_leaves", "render_kernel.cu", "render_leaves_launch",
-    [P, ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P],
+    [P, ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P],
 )
 RENDER_LEAVES_RESIDUALS = Kernel(
     "render_leaves_residuals", "render_kernel.cu", "render_leaves_residuals_launch",
-    [P, ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P],
+    [P, ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P, P, P],
 )
 GRAD = Kernel(
     "grad", "grad_kernel.cu", "grad_launch",
@@ -170,11 +174,11 @@ GRAD = Kernel(
 )
 WAVEFRONT_CAMERA = Kernel(
     "wavefront_camera", "wavefront_kernel.cu", "wavefront_camera_launch",
-    [P, ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P],
+    [P, ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
 )
 WAVEFRONT_BOUNCE = Kernel(
     "wavefront_bounce", "wavefront_kernel.cu", "wavefront_bounce_launch",
-    [ctypes.c_uint32, P, P, I, I, P, I, P, P, P, I, I, I, I, I, P, P, P, P, P, P, P],
+    [ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, I, P, P, P, P, P, P, P, P],
 )
 WAVEFRONT_INTEGRATE = Kernel(
     "wavefront_integrate", "wavefront_kernel.cu", "wavefront_integrate_launch",

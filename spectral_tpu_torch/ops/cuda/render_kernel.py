@@ -10,8 +10,10 @@ launch csrc/render_kernel.cu for CUDA tensors and run
 ``render_rays_reference``, the plain PyTorch version, for CPU tensors; there
 is no other fallback. Scenes of at most DENSE_CUTOFF triangles take the
 dense sweep; larger ones pass a leaf pack (``pack_scene_leaves``) and take
-the Morton-leaf sweep, in this megakernel (``sched="mega"``) or in the
-sorted per-bounce scheduler of ops/cuda/wavefront_kernel.py.
+the Morton-leaf sweep under its groups and super-groups of leaves, in this
+megakernel (``sched="mega"``) or in the sorted per-bounce scheduler of
+ops/cuda/wavefront_kernel.py; ``leaf_tables`` derives what the kernels
+read besides the pack once per render call.
 
 The dense CUDA forms (forward and residual) can also report how many
 sweeps each warp ran (``warp_steps``): live ray-steps / (32 x warp sweeps)
@@ -42,6 +44,8 @@ uint32 arithmetic, which the CUDA source writes identically.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...models.camera import camera_vector
@@ -60,7 +64,16 @@ from ...utils.constants import (
 )
 from ..bvh import morton_codes
 from ..fp32 import dot3, fma
-from ..intersect import BIG, LEAF_VALID, nearest_hit, nearest_hit_leaves
+from ..intersect import (
+    BIG,
+    GROUP_SIZE,
+    LEAF_VALID,
+    SUPER_SIZE,
+    box_unions,
+    leaf_groups,
+    nearest_hit,
+    nearest_hit_leaves,
+)
 from . import build
 
 W = N_RAY_WAVELENGTHS  # 7 wavelengths, hero at index 0
@@ -183,15 +196,32 @@ def pack_scene_leaves(scene, leaf_size: int = LEAF_SIZE):
 
 
 def order_leaves_near_to_far(tri_pack, leaf_pack, cam_pos):
-    """The leaves (and their rows) sorted by the squared distance from
-    ``cam_pos`` to their AABB centre, stably (render_kernel.py:3257): the
-    first leaves a camera ray enters then hold near hits, and the
-    ``enter < best_t`` test skips more of the rest. The nearest hit does not
-    depend on the order."""
-    n_leaves = leaf_pack.shape[0]
-    cent = 0.5 * (leaf_pack[:, 0:3] + leaf_pack[:, 3:6])
+    """The leaves (and their rows) in whole super-groups (GROUP_SIZE *
+    SUPER_SIZE consecutive leaves of the Morton order), the super-groups
+    sorted stably by the squared distance from ``cam_pos`` to the centre of
+    their valid leaves' union box, the leaves inside each kept in Morton
+    order. The pack is first padded with invalid leaves (inverted boxes,
+    zero rows) to a whole number of super-groups, so that every group and
+    super-group of the sweep's hierarchy (ops/intersect.py::leaf_groups)
+    stays a run of Morton-consecutive leaves, compact in space. The JAX
+    package sorts single leaves (render_kernel.py:3257) and groups
+    consecutive leaves of that order, which makes shell-shaped groups that
+    cull poorly. Either way the first boxes a camera ray enters hold near
+    hits, and the ``enter < best_t`` test skips more of the rest; the
+    nearest hit does not depend on the order."""
+    unit = GROUP_SIZE * SUPER_SIZE
+    n_leaves, width = leaf_pack.shape[0], tri_pack.shape[1]
+    k_size = tri_pack.shape[0] // n_leaves
+    pad = -n_leaves % unit
+    if pad:
+        inverted = torch.tensor([BIG] * 3 + [-BIG] * 3 + [0.0, 0.0], dtype=leaf_pack.dtype, device=leaf_pack.device)
+        leaf_pack = torch.cat([leaf_pack, inverted.expand(pad, -1)])
+        tri_pack = torch.cat([tri_pack, tri_pack.new_zeros((pad * k_size, width))])
+    units = box_unions(leaf_pack, unit)
+    cent = 0.5 * (units[:, 0:3] + units[:, 3:6])
     order = torch.argsort(torch.sum((cent - cam_pos[None, :]) ** 2, dim=1), stable=True)
-    rows = tri_pack.reshape(n_leaves, -1, tri_pack.shape[1])[order].reshape(tri_pack.shape)
+    order = (order[:, None] * unit + torch.arange(unit, device=order.device)).reshape(-1)
+    rows = tri_pack.reshape(-1, k_size, width)[order].reshape(-1, width)
     return rows.contiguous(), leaf_pack[order].contiguous()
 
 
@@ -206,6 +236,47 @@ def pack_scene_auto(scene, cam_vec=None, leaf_size: int = LEAF_SIZE):
     if cam_vec is not None:
         tri, leaf = order_leaves_near_to_far(tri, leaf, cam_vec[0:3].to(tri.device))
     return tri, mat, tab, leaf
+
+
+# the leaf tri pack's columns as the four float4 of csrc/hit.cuh::tri_hit4
+# a triangle: (n, offset), then (g_k, c_k) for k = 0, 1, 2
+_ROW4_COLUMNS = [0, 1, 2, 3, 4, 5, 6, 13, 7, 8, 9, 14, 10, 11, 12, 15]
+
+
+class LeafTables(NamedTuple):
+    """What the leaf sweeps read of a leaf pack, built once per render call
+    (``leaf_tables``): the pack, its cull hierarchy (ops/intersect.py::
+    leaf_groups) and, for the CUDA kernels, each triangle as four float4
+    rows and an int32 (material, original index) pair. Every table is
+    contiguous and 16-byte aligned."""
+
+    tri: torch.Tensor  # [NL * K, 18]
+    leaf: torch.Tensor  # [NL, 8]
+    groups: torch.Tensor  # [NG, 8]
+    supers: torch.Tensor  # [NS, 8]
+    rows: torch.Tensor  # [NL * K, 16]
+    ids: torch.Tensor  # [NL * K, 2] int32
+
+
+def leaf_tables(tri_pack, leaf_pack) -> LeafTables:
+    """The LeafTables of a leaf pack (float32 tensors on one device)."""
+    tri_pack, leaf_pack = (x.to(torch.float32).contiguous() for x in (tri_pack, leaf_pack))
+    if leaf_pack.data_ptr() % 16:
+        leaf_pack = leaf_pack.clone()
+    groups, supers = leaf_groups(leaf_pack)
+    rows = tri_pack[:, _ROW4_COLUMNS].contiguous()
+    ids = tri_pack[:, 16:18].to(torch.int32).contiguous()
+    return LeafTables(tri_pack, leaf_pack, groups, supers, rows, ids)
+
+
+def leaf_launch_args(lt: LeafTables) -> tuple:
+    """The leaf scene arguments of the CUDA entry points (rows, ids, leaf,
+    group, super-group pointers; leaves, leaf size, groups, super-groups)."""
+    n_leaves = lt.leaf.shape[0]
+    return (
+        lt.rows.data_ptr(), lt.ids.data_ptr(), lt.leaf.data_ptr(), lt.groups.data_ptr(), lt.supers.data_ptr(),
+        n_leaves, lt.tri.shape[0] // n_leaves, lt.groups.shape[0], lt.supers.shape[0],
+    )
 
 
 def n_uniforms(bounces: int) -> int:
@@ -256,7 +327,7 @@ def comb_cell(hero: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor, t
 
 
 def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack=None, visits=None,
-           warp_steps=None):
+           warp_steps=None, group_visits=None, super_visits=None):
     n = px.shape[0]
     dev = px.device
     if cam_vec.shape != (20,) or py.shape != (n,) or px.ndim != 1:
@@ -269,8 +340,8 @@ def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, step
                 f"{tri_pack.shape[0]} triangles: the dense sweep covers at most {DENSE_CUTOFF}; "
                 "pass the scene's leaf pack (pack_scene_leaves)"
             )
-        if visits is not None:
-            raise ValueError("visits counts leaves: it needs a leaf pack")
+        if any(x is not None for x in (visits, group_visits, super_visits)):
+            raise ValueError("visits, group_visits and super_visits count boxes of the leaf sweep: they need a leaf pack")
     else:
         if warp_steps is not None:
             raise ValueError("warp_steps counts the dense sweep's warps: it needs no leaf pack")
@@ -290,12 +361,14 @@ def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, step
         raise ValueError(f"spp {spp} and bounces {bounces} must be >= 1")
     if rand is not None and rand.shape != (spp, n_uniforms(bounces), n):
         raise ValueError(f"rand must be [{spp}, {n_uniforms(bounces)}, {n}], got {tuple(rand.shape)}")
-    for name, x, size in (("steps", steps, n), ("visits", visits, n), ("warp_steps", warp_steps, -(-n // WARP))):
+    for name, x, size in (("steps", steps, n), ("visits", visits, n), ("group_visits", group_visits, n),
+                          ("super_visits", super_visits, n), ("warp_steps", warp_steps, -(-n // WARP))):
         if x is not None and (x.shape != (size,) or x.dtype != torch.int32 or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 [{size}] tensor")
     for name, x in (("cam_vec", cam_vec), ("tri_pack", tri_pack), ("mat_pack", mat_pack),
                     ("tables", tables), ("py", py), ("rand", rand), ("steps", steps),
-                    ("leaf_pack", leaf_pack), ("visits", visits), ("warp_steps", warp_steps)):
+                    ("leaf_pack", leaf_pack), ("visits", visits), ("group_visits", group_visits),
+                    ("super_visits", super_visits), ("warp_steps", warp_steps)):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, px on {dev}")
     if warp_steps is not None and dev.type != "cuda":
@@ -343,32 +416,40 @@ def hero_curves(hero: torch.Tensor, tables: torch.Tensor):
     return lam, cell, frac, d65w, bgw
 
 
-def _sweep(ray, alive, tri_pack, leaf_pack, visits):
+def _sweep(ray, alive, tri_pack, leaves, counts):
     """(t, hit, front, row) of the nearest hit: the dense sweep, or the leaf
-    sweep for the live rays (the others miss)."""
+    sweep for the live rays (the others miss), counting its boxes entered
+    into ``counts`` (visits, group_visits, super_visits; each may be
+    None)."""
     o = torch.stack(ray[0:3], 1)
     d = torch.stack(ray[3:6], 1)
-    if leaf_pack is None:
+    if leaves is None:
         t, idx, hit, front = nearest_hit(o, d, tri_pack)
         return t, hit, front, idx.long()
-    t, _, hit, front, row = nearest_hit_leaves(o, d, tri_pack, leaf_pack, alive > 0.0, visits)
+    visits, group_visits, super_visits = counts
+    t, _, hit, front, row = nearest_hit_leaves(
+        o, d, tri_pack, leaves.leaf, alive > 0.0, visits, (leaves.groups, leaves.supers), group_visits, super_visits,
+    )
     return t, hit, front, row
 
 
 def trace_bounce(ray, power, alive, n_valid, curves, u_a, u_b, u_c, tri_pack, mat_pack,
-                 leaf_pack=None, visits=None):
+                 leaves=None, counts=(None, None, None)):
     """One bounce of [N] paths (_scatter_shade after the sweep;
     path.cuh::shade): nearest hit, material fetch, spectral weight, scatter
     and termination. ``ray`` is (ox, oy, oz, dx, dy, dz), ``power`` a list of
-    W tensors, ``alive`` 1/0 floats, ``curves`` what ``hero_curves`` gave.
-    A dead path stays frozen. Returns (ray, power, alive, n_valid, matres):
-    matres mat + 1 for a hit, -1 for a background miss, 0 for a dead path."""
+    W tensors, ``alive`` 1/0 floats, ``curves`` what ``hero_curves`` gave;
+    ``leaves``: the LeafTables of the leaf sweep, None for the dense one;
+    ``counts``: int32 [N] counters of its leaves, groups and super-groups
+    entered, or None. A dead path stays frozen. Returns (ray, power,
+    alive, n_valid, matres): matres mat + 1 for a hit, -1 for a background
+    miss, 0 for a dead path."""
     f32 = torch.float32
     ox, oy, oz, dx, dy, dz = ray
     lam, _, _, d65w, bgw = curves
     one = torch.ones_like(ox)
     zero = torch.zeros_like(ox)
-    t, best_hit_b, front, row = _sweep(ray, alive, tri_pack, leaf_pack, visits)
+    t, best_hit_b, front, row = _sweep(ray, alive, tri_pack, leaves, counts)
     best_hit = best_hit_b.to(f32)
     hit = best_hit * alive
     miss = (1.0 - best_hit) * alive
@@ -496,13 +577,15 @@ def path_xyz(power, n_valid, cell, frac, tables):
 def render_rays_reference(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
     image_width, rand=None, steps=None, residuals=False, leaf_pack=None, visits=None,
+    group_visits=None, super_visits=None,
 ):
     """The plain PyTorch version of the megakernel: XYZ [N, 3] summed over
     spp; with ``residuals``, the tuple (xyz, hero, n_valid, power, matres).
     ``steps`` (int32 [N]), when given, receives each ray's count of live
     ray-steps (bounces traced while its path was alive); with a
-    ``leaf_pack`` (the leaf sweep), ``visits`` (int32 [N]) receives the
-    leaves each pixel's rays entered."""
+    ``leaf_pack`` (the leaf sweep), ``visits``, ``group_visits`` and
+    ``super_visits`` (int32 [N]) receive the leaves, groups and
+    super-groups each pixel's rays entered."""
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
@@ -514,8 +597,11 @@ def render_rays_reference(
     keys = None if rand is not None else pixel_keys(seed, px, py, image_width)
     accx, accy, accz = zero, zero, zero
     live = torch.zeros(n, dtype=torch.int32, device=dev)
-    if visits is not None:
-        visits.zero_()
+    leaves = None if leaf_pack is None else leaf_tables(tri_pack, leaf_pack)
+    counts = (visits, group_visits, super_visits)
+    for x in counts:
+        if x is not None:
+            x.zero_()
     if residuals:
         res_hero = torch.empty((spp, n), dtype=f32, device=dev)
         res_nvalid = torch.empty((spp, n), dtype=f32, device=dev)
@@ -536,7 +622,7 @@ def render_rays_reference(
             live += (alive > 0.0).to(torch.int32)
             ray, power, alive, n_valid, matres = trace_bounce(
                 ray, power, alive, n_valid, curves, u[3 + 3 * b], u[4 + 3 * b], u[5 + 3 * b],
-                tri_pack, mat_pack, leaf_pack, visits,
+                tri_pack, mat_pack, leaves, counts,
             )
             if residuals:
                 res_mat[s, b] = matres
@@ -560,6 +646,7 @@ def render_rays_reference(
 def render_rays(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
     image_width, rand=None, steps=None, leaf_pack=None, visits=None, warp_steps=None,
+    group_visits=None, super_visits=None,
 ) -> torch.Tensor:
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] f32.
 
@@ -568,31 +655,36 @@ def render_rays(
     hash; ``rand``: injected planes [spp, n_uniforms(bounces), N] f32;
     ``steps``: optional int32 [N] output of live ray-steps per ray;
     ``leaf_pack``: the leaves of a ``pack_scene_leaves`` tri_pack, for the
-    leaf sweep; ``visits``: optional int32 [N] output of leaves entered;
+    leaf sweep; ``visits``, ``group_visits``, ``super_visits``: optional
+    int32 [N] outputs of the leaves, groups and super-groups entered;
     ``warp_steps``: optional int32 [ceil(N / 32)] output of each warp's
     sweeps (dense form on CUDA tensors only; 0 for a warp that did not
     run). CUDA tensors launch the kernel (the leaf form with a leaf pack),
     CPU tensors run the plain version."""
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps)
+    counts = (visits, group_visits, super_visits)
+    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps,
+           group_visits, super_visits)
     if px.device.type == "cpu":
         return render_rays_reference(
             cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
             image_width, rand, steps, leaf_pack=leaf_pack, visits=visits,
+            group_visits=group_visits, super_visits=super_visits,
         )
     xyz = torch.empty((px.shape[0], 3), dtype=torch.float32, device=px.device)
     _launch(
         build.RENDER if leaf_pack is None else build.RENDER_LEAVES, cam_vec, seed, tri_pack,
-        mat_pack, tables, px, py, spp, bounces, image_width, rand, xyz, steps, leaf_pack, visits,
+        mat_pack, tables, px, py, spp, bounces, image_width, rand, xyz, steps, leaf_pack, counts,
         warp_steps,
     )
     return xyz
 
 
 def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-            image_width, rand, xyz, steps, leaf_pack, visits, warp_steps, residuals=()):
+            image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, residuals=()):
     """Launch the megakernel (dense or leaf form, forward or residual) on
-    CUDA tensors, writing xyz, steps, visits and warp_steps (or None) and
-    the residual buffers."""
+    CUDA tensors, writing xyz, steps, the leaf form's counts (visits,
+    group_visits, super_visits) and the dense form's warp_steps (or None)
+    and the residual buffers."""
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
     f32 = torch.float32
@@ -601,33 +693,34 @@ def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, boun
     )
     if rand is not None:
         rand = rand.to(f32).contiguous()
+    counters = (_ptr(steps),)
     if leaf_pack is None:
         scene = (tri_pack.data_ptr(), tri_pack.shape[0])
-    else:
-        leaf_pack = leaf_pack.to(f32).contiguous()
-        n_leaves = leaf_pack.shape[0]
-        scene = (tri_pack.data_ptr(), leaf_pack.data_ptr(), n_leaves, tri_pack.shape[0] // n_leaves)
-    counters = (None if steps is None else steps.data_ptr(),)
-    if leaf_pack is None:
         if warp_steps is not None:
             warp_steps.zero_()
-        counters += (None if warp_steps is None else warp_steps.data_ptr(),)
+        counters += (_ptr(warp_steps),)
         if kernel is build.RENDER:
             # the persistent grid's pixel counter
             next_pixel = torch.zeros(1, dtype=torch.int32, device=px.device)
             counters += (next_pixel.data_ptr(),)
     else:
-        counters += (None if visits is None else visits.data_ptr(),)
+        lt = leaf_tables(tri_pack, leaf_pack)
+        scene = leaf_launch_args(lt)
+        counters += tuple(_ptr(x) for x in counts)
     kernel.launch(
         px.device,
         cam_vec.data_ptr(), seed & _M32, *scene,
         mat_pack.data_ptr(), mat_pack.shape[0],
         tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0], image_width,
         spp, bounces,
-        None if rand is None else rand.data_ptr(),
+        _ptr(rand),
         xyz.data_ptr(), *counters,
         *(r.data_ptr() for r in residuals),
     )
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
@@ -648,6 +741,7 @@ def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
 def render_rays_residuals(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
     image_width, rand=None, steps=None, out=None, leaf_pack=None, visits=None, warp_steps=None,
+    group_visits=None, super_visits=None,
 ):
     """``render_rays`` that also records the path residuals: returns
     (xyz [N, 3], hero [spp, N], n_valid [spp, N], power [spp, W, N],
@@ -656,7 +750,9 @@ def render_rays_residuals(
     write into; every element is written. CUDA tensors launch the kernel's
     residual form (its own launch count), CPU tensors run the plain
     version."""
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps)
+    counts = (visits, group_visits, super_visits)
+    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps,
+           group_visits, super_visits)
     n = px.shape[0]
     dev = px.device
     out = residual_buffers(spp, bounces, n, dev, out)
@@ -664,6 +760,7 @@ def render_rays_residuals(
         xyz, *res = render_rays_reference(
             cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
             image_width, rand, steps, residuals=True, leaf_pack=leaf_pack, visits=visits,
+            group_visits=group_visits, super_visits=super_visits,
         )
         for o, r in zip(out, res):
             o.copy_(r)
@@ -672,7 +769,7 @@ def render_rays_residuals(
     _launch(
         build.RENDER_RESIDUALS if leaf_pack is None else build.RENDER_LEAVES_RESIDUALS,
         cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-        image_width, rand, xyz, steps, leaf_pack, visits, warp_steps, out,
+        image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, out,
     )
     return (xyz, *out)
 

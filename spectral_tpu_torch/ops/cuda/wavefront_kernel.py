@@ -41,10 +41,13 @@ from .render_kernel import (
     _M32,
     W,
     _check,
+    _ptr,
     camera_rays,
     hash_uniforms,
     hero_curves,
     hero_wavelength,
+    leaf_launch_args,
+    leaf_tables,
     n_uniforms,
     path_xyz,
     pixel_keys,
@@ -114,13 +117,28 @@ def _store(st, cols, ray, power, alive, n_valid, hero=None):
         st[_ROW_PREV, cols] = -1.0
 
 
+def _leaves(tri_pack, leaf_pack, sweep):
+    return sweep if sweep is not None else leaf_tables(tri_pack, leaf_pack)
+
+
+def _counts(n_rays, dev, visits, group_visits, super_visits):
+    """Zeroed int32 [R] counters where the [spp, N] outputs are wanted."""
+    return tuple(
+        None if x is None else torch.zeros(n_rays, dtype=torch.int32, device=dev)
+        for x in (visits, group_visits, super_visits)
+    )
+
+
 def camera_bounce_reference(
     cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-    image_width, rand, state, matres=None, steps=None, visits=None,
+    image_width, rand, state, matres=None, steps=None, visits=None, group_visits=None,
+    super_visits=None, sweep=None,
 ):
     """Plain version of the camera kernel: sample-ray r = s * N + p gets the
     camera ray and hero of its draws, then bounce 0; writes ``state``
-    [17, spp * N], matres[:, 0, :], and steps, visits [spp, N]."""
+    [17, spp * N], matres[:, 0, :], and steps, visits, group_visits,
+    super_visits [spp, N]. ``sweep``: the LeafTables of the leaf pack
+    (render_kernel.py::leaf_tables), built here when not given."""
     n = px.shape[0]
     dev = px.device
     r = torch.arange(spp * n, device=dev)
@@ -129,23 +147,25 @@ def camera_bounce_reference(
     ray = camera_rays(cam_vec, px[pixel], py[pixel], u[0], u[1], u[3 + 3 * bounces], u[4 + 3 * bounces])
     hero = hero_wavelength(u[2])
     one = torch.ones(spp * n, dtype=torch.float32, device=dev)
-    cnt = None if visits is None else torch.zeros(spp * n, dtype=torch.int32, device=dev)
+    cnt = _counts(spp * n, dev, visits, group_visits, super_visits)
     ray, power, alive, n_valid, mres = trace_bounce(
         ray, [one] * W, one, torch.full_like(one, float(W)), hero_curves(hero, tables),
-        u[3], u[4], u[5], tri_pack, mat_pack, leaf_pack, cnt,
+        u[3], u[4], u[5], tri_pack, mat_pack, _leaves(tri_pack, leaf_pack, sweep), cnt,
     )
     _store(state, r, ray, power, alive, n_valid, hero)
     if matres is not None:
         matres[:, 0, :] = mres.reshape(spp, n)
     if steps is not None:
         steps.fill_(1)
-    if visits is not None:
-        visits.copy_(cnt.reshape(spp, n))
+    for out, c in zip((visits, group_visits, super_visits), cnt):
+        if out is not None:
+            out.copy_(c.reshape(spp, n))
 
 
 def bounce_reference(
     seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces, b,
-    image_width, rand, state, orig, matres=None, steps=None, visits=None,
+    image_width, rand, state, orig, matres=None, steps=None, visits=None, group_visits=None,
+    super_visits=None, sweep=None,
 ):
     """Plain version of the bounce kernel: bounce ``b`` of the state in
     sorted order, in place; ``orig`` [spp * N] int32 holds each column's
@@ -157,18 +177,19 @@ def bounce_reference(
     u = _ray_draws(seed, px, py, image_width, rand, sample, pixel, 3 + 3 * b, 3)
     ray, power, alive, n_valid = _state_of(state)
     live = alive > 0.0
-    cnt = None if visits is None else torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    cnt = _counts(o.shape[0], o.device, visits, group_visits, super_visits)
     ray, power, alive, n_valid, mres = trace_bounce(
         ray, power, alive, n_valid, hero_curves(state[_ROW_HERO], tables),
-        u[0], u[1], u[2], tri_pack, mat_pack, leaf_pack, cnt,
+        u[0], u[1], u[2], tri_pack, mat_pack, _leaves(tri_pack, leaf_pack, sweep), cnt,
     )
     _store(state, slice(None), ray, power, alive, n_valid)
     if matres is not None:
         matres[sample, b, pixel] = mres
     if steps is not None:
         steps.view(-1)[o] += live.to(torch.int32)
-    if visits is not None:
-        visits.view(-1)[o] += cnt
+    for out, c in zip((visits, group_visits, super_visits), cnt):
+        if out is not None:
+            out.view(-1)[o] += c
 
 
 def integrate_reference(tables, state, orig, n, spp, xyz, hero=None, n_valid=None, power=None):
@@ -187,24 +208,26 @@ def integrate_reference(tables, state, orig, n, spp, xyz, hero=None, n_valid=Non
 
 
 def _launch_camera(cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-                   image_width, rand, state, matres, steps, visits):
-    n_leaves = leaf_pack.shape[0]
+                   image_width, rand, state, matres=None, steps=None, visits=None, group_visits=None,
+                   super_visits=None, sweep=None):
+    lt = _leaves(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
     build.WAVEFRONT_CAMERA.launch(
-        px.device, cam_vec.data_ptr(), seed & _M32, tri_pack.data_ptr(), leaf_pack.data_ptr(),
-        n_leaves, tri_pack.shape[0] // n_leaves, mat_pack.data_ptr(), mat_pack.shape[0],
-        tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0], image_width, spp, bounces,
-        *(_ptr(x) for x in (rand, state, matres, steps, visits)),
+        px.device, cam_vec.data_ptr(), seed & _M32, *leaf_launch_args(lt),
+        mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
+        image_width, spp, bounces,
+        *(_ptr(x) for x in (rand, state, matres, steps, visits, group_visits, super_visits)),
     )
 
 
 def _launch_bounce(seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces, b,
-                   image_width, rand, state, orig, matres, steps, visits):
-    n_leaves = leaf_pack.shape[0]
+                   image_width, rand, state, orig, matres=None, steps=None, visits=None, group_visits=None,
+                   super_visits=None, sweep=None):
+    lt = _leaves(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
     build.WAVEFRONT_BOUNCE.launch(
-        px.device, seed & _M32, tri_pack.data_ptr(), leaf_pack.data_ptr(), n_leaves,
-        tri_pack.shape[0] // n_leaves, mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(),
-        px.data_ptr(), py.data_ptr(), px.shape[0], image_width, spp, bounces, b,
-        *(_ptr(x) for x in (rand, state, orig, matres, steps, visits)),
+        px.device, seed & _M32, *leaf_launch_args(lt),
+        mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
+        image_width, spp, bounces, _ptr(rand), b,
+        *(_ptr(x) for x in (state, orig, matres, steps, visits, group_visits, super_visits)),
     )
 
 
@@ -215,23 +238,20 @@ def _launch_integrate(tables, state, orig, n, spp, xyz, hero=None, n_valid=None,
     )
 
 
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
 _PLAIN = (camera_bounce_reference, bounce_reference, integrate_reference)
 _CUDA = (_launch_camera, _launch_bounce, _launch_integrate)
 
 
 def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-               image_width, rand, save_residuals, steps, visits, out):
+               image_width, rand, save_residuals, counters, out):
     _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, None, leaf_pack)
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
-    for name, x in (("steps", steps), ("visits", visits)):
-        if x is not None and (x.shape != (spp, n) or x.dtype != torch.int32 or x.device != dev):
-            raise ValueError(f"{name} must be an int32 [spp, N] tensor on {dev}")
+    for name, x in zip(("steps", "visits", "group_visits", "super_visits"), counters):
+        if x is not None and (x.shape != (spp, n) or x.dtype != torch.int32 or x.device != dev
+                              or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 [spp, N] tensor on {dev}")
     cam_vec, tri_pack, mat_pack, tables, leaf_pack, px, py = (
         x.to(f32).contiguous() for x in (cam_vec, tri_pack, mat_pack, tables, leaf_pack, px, py)
     )
@@ -242,9 +262,10 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
     res = residual_buffers(spp, bounces, n, dev, out) if save_residuals else None
     matres = res[3] if res is not None else None
     scene = (tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces)
+    sweep = leaf_tables(tri_pack, leaf_pack)
 
     state = torch.empty((STATE_ROWS, nrays), dtype=f32, device=dev)
-    camera(cam_vec, seed, *scene, image_width, rand, state, matres, steps, visits)
+    camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep)
     orig = torch.arange(nrays, dtype=torch.int32, device=dev)
     if bounces > 1:
         lo, inv_ext = _key_box(leaf_pack)
@@ -252,7 +273,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
         perm = torch.argsort(_sort_keys(state, lo, inv_ext), stable=True)
         state = state.index_select(1, perm)
         orig = orig.index_select(0, perm)
-        bounce(seed, *scene, b, image_width, rand, state, orig, matres, steps, visits)
+        bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep)
 
     xyz_rays = torch.empty((nrays, 3), dtype=f32, device=dev)
     integrate(tables, state, orig, n, spp, xyz_rays, *(res[:3] if res is not None else ()))
@@ -267,6 +288,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
 def render_rays_wavefront(
     cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
     image_width, rand=None, save_residuals=False, steps=None, visits=None, out=None,
+    group_visits=None, super_visits=None,
 ):
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] through
     the sorted per-bounce scheduler, over the leaf pack (tri_pack [NL * K,
@@ -276,8 +298,10 @@ def render_rays_wavefront(
     [spp, N], power [spp, W, N], matres int32 [spp, bounces, N]), all in
     original ray order, as render_rays_residuals returns them; ``out``:
     preallocated residual buffers (every element is written). ``steps``,
-    ``visits``: optional int32 [spp, N] outputs, each sample-ray's live
-    ray-steps and entered leaves. CUDA tensors launch the
+    ``visits``, ``group_visits``, ``super_visits``: optional int32 [spp, N]
+    outputs, each sample-ray's live ray-steps and entered leaves, groups and
+    super-groups. The leaf tables (render_kernel.py::leaf_tables) are built
+    once and read by every launch. CUDA tensors launch the
     kernels (one camera launch, bounces - 1 bounce launches, one integrate
     launch), CPU tensors run their plain versions."""
     kernels = _PLAIN if px.device.type == "cpu" else _CUDA
@@ -285,17 +309,18 @@ def render_rays_wavefront(
         raise ValueError(f"unsupported device {px.device}")
     return _wavefront(
         kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-        image_width, rand, save_residuals, steps, visits, out,
+        image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out,
     )
 
 
 def render_rays_wavefront_reference(
     cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
     image_width, rand=None, save_residuals=False, steps=None, visits=None, out=None,
+    group_visits=None, super_visits=None,
 ):
     """``render_rays_wavefront`` through the plain versions of its kernels,
     on any device."""
     return _wavefront(
         _PLAIN, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-        image_width, rand, save_residuals, steps, visits, out,
+        image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out,
     )

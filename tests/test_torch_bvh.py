@@ -15,6 +15,19 @@
   leaf sizes, with and without the near-to-far leaf order. On the exact
   JAX boxes the vertex rays find both traps (ROADMAP C2): a leaf culled by
   an ulp at its face, and a tie lost to ``enter < best_t``;
+- the leaf sweep's cull hierarchy (``leaf_groups``): every group and
+  super-group box contains its valid members' boxes, a group with no valid
+  leaf is flagged invalid, and the hierarchy is conservative: a ray whose
+  slab test passes a leaf passes its group and super-group, entering them
+  no later, on random rays and on rays that graze leaf boxes;
+- the near-to-far order moves whole super-groups: each keeps its leaves
+  contiguous and in Morton order, and the super-groups lie near to far;
+- the hierarchical plain sweep returns exactly what a flat sequential walk
+  over every leaf returns (t, index, row, front, leaves entered), and its
+  counts of groups and super-groups entered equal a sequential walk of the
+  hierarchy's, at leaf sizes 8 and 16, in Morton and near-to-far order, for
+  camera, random and vertex rays; on one case the JAX package's exact dense
+  sweep (spectral_tpu/ops/intersect.py::nearest_hit) finds the same hits;
 - ``_sort_keys`` equals the JAX scheduler's on crafted states with NaN,
   infinite and far-out origins.
 """
@@ -30,6 +43,7 @@ import torch
 
 from spectral_tpu.models import scenes as jscenes
 from spectral_tpu.ops.bvh import morton_codes as jax_morton_codes
+from spectral_tpu.ops.intersect import nearest_hit as jax_nearest_hit
 from spectral_tpu.ops.pallas import wavefront_kernel as jwk
 from spectral_tpu.ops.pallas.render_kernel import pack_scene_bvh_mxu
 from spectral_tpu_torch.models import scenes as tscenes
@@ -44,7 +58,17 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     pack_scene_leaves,
 )
 from spectral_tpu_torch.ops.cuda.wavefront_kernel import STATE_ROWS, _sort_keys
-from spectral_tpu_torch.ops.intersect import BIG, leaf_slabs, nearest_hit, nearest_hit_leaves, safe_inv
+from spectral_tpu_torch.ops.intersect import (
+    BIG,
+    GROUP_SIZE,
+    SUPER_SIZE,
+    _tri_test,
+    leaf_groups,
+    leaf_slabs,
+    nearest_hit,
+    nearest_hit_leaves,
+    safe_inv,
+)
 
 FIELDS = [(520, 3, False), (520, 3, True), (10008, 0, False)]
 
@@ -213,3 +237,166 @@ def test_sort_keys_equal_jax():
     assert ours.dtype == torch.int32
     np.testing.assert_array_equal(ours.numpy(), theirs)
     assert len(np.unique(theirs)) > 100
+
+
+CAMERA_POS = torch.tensor([278.0, 278.0, -800.0])
+
+
+def _pack(scene, leaf_size, near_to_far):
+    tri, _, _, leaf = pack_scene_leaves(scene, leaf_size)
+    if near_to_far:
+        tri, leaf = order_leaves_near_to_far(tri, leaf, CAMERA_POS)
+    return tri, leaf
+
+
+@pytest.mark.parametrize("near_to_far", [False, True], ids=["morton", "near_to_far"])
+@pytest.mark.parametrize("leaf_size", [8, 16])
+def test_group_tables_hold_their_valid_leaves(field520, leaf_size, near_to_far):
+    _, leaf = _pack(field520, leaf_size, near_to_far)
+    groups, supers = leaf_groups(leaf)
+    assert groups.shape == (-(-leaf.shape[0] // GROUP_SIZE), 8)
+    assert supers.shape == (-(-groups.shape[0] // SUPER_SIZE), 8)
+    for parent, child, fan in ((groups, leaf, GROUP_SIZE), (supers, groups, SUPER_SIZE)):
+        owner = torch.arange(child.shape[0]) // fan
+        valid = child[:, 6] != 0
+        assert (child[valid, 0:3] >= parent[owner[valid], 0:3]).all()
+        assert (child[valid, 3:6] <= parent[owner[valid], 3:6]).all()
+        any_valid = torch.zeros(parent.shape[0], dtype=torch.bool).index_put_((owner,), valid, accumulate=True)
+        assert torch.equal(parent[:, 6], any_valid.float())
+        # a box with no valid member is inverted and flagged, as a padded leaf
+        empty = ~any_valid
+        assert (parent[empty, 0:3] == BIG).all() and (parent[empty, 3:6] == -BIG).all()
+        assert (parent[:, 7] == 0).all()
+    if near_to_far:
+        assert leaf.shape[0] % (GROUP_SIZE * SUPER_SIZE) == 0
+        assert (groups[:, 6] == 0).any()  # the padding fills whole groups
+
+
+def _grazing_rays(leaf, n, seed):
+    """Rays from random origins aimed at leaf box corners and edge points:
+    their slab intervals touch the boxes' faces."""
+    rng = np.random.default_rng(seed)
+    boxes = leaf[leaf[:, 6] != 0].numpy()
+    pick = boxes[rng.integers(0, len(boxes), n)]
+    corner = rng.integers(0, 2, (n, 3)).astype(bool)
+    target = np.where(corner, pick[:, 3:6], pick[:, 0:3])
+    edge = rng.integers(0, 3, n)
+    frac = rng.uniform(size=n)
+    target[np.arange(n), edge] = pick[np.arange(n), edge] + frac * (pick[np.arange(n), edge + 3] - pick[np.arange(n), edge])
+    o = rng.uniform([-100.0, -100.0, -900.0], [650.0, 650.0, 650.0], (n, 3))
+    return torch.from_numpy(o.astype(np.float32)), torch.from_numpy((target - o).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["random", "grazing"])
+def test_group_cull_is_conservative(field520, kind):
+    tri, leaf = _pack(field520, 8, near_to_far=True)
+    o, d = _rays(field520, "random", seed=3) if kind == "random" else _grazing_rays(leaf, 2048, 5)
+    groups, supers = leaf_groups(leaf)
+    inv = [safe_inv(d[:, k]) for k in range(3)]
+    pl, el = leaf_slabs(leaf, o, inv)
+    pg, eg = leaf_slabs(groups, o, inv)
+    ps, es = leaf_slabs(supers, o, inv)
+    pl &= leaf[None, :, 6] != 0
+    g_of = torch.arange(leaf.shape[0]) // GROUP_SIZE
+    s_of = torch.arange(groups.shape[0]) // SUPER_SIZE
+    assert pl.any(dim=1).float().mean() > 0.3  # a real comparison
+    assert (pg[:, g_of] | ~pl).all() and (eg[:, g_of] <= el)[pl].all()
+    pg &= groups[None, :, 6] != 0
+    assert (ps[:, s_of] | ~pg).all() and (es[:, s_of] <= eg)[pg].all()
+
+
+def test_near_to_far_moves_whole_super_groups(field520):
+    tri, _, _, leaf = pack_scene_leaves(field520, 8)
+    otri, oleaf = order_leaves_near_to_far(tri, leaf, CAMERA_POS)
+    unit = GROUP_SIZE * SUPER_SIZE
+    n = leaf.shape[0]
+    pad = -n % unit
+    assert oleaf.shape[0] == n + pad and otri.shape[0] == (n + pad) * 8
+    padded = torch.cat([leaf, torch.tensor([[BIG] * 3 + [-BIG] * 3 + [0.0, 0.0]]).expand(pad, -1)])
+    padded_tri = torch.cat([tri, torch.zeros(pad * 8, tri.shape[1])])
+    seen, dist = [], []
+    for b in range(oleaf.shape[0] // unit):
+        block = oleaf[b * unit:(b + 1) * unit]
+        src = [u for u in range(padded.shape[0] // unit) if torch.equal(block, padded[u * unit:(u + 1) * unit])]
+        assert len(src) == 1  # a run of Morton-consecutive leaves, in Morton order
+        u = src[0]
+        assert torch.equal(otri[b * unit * 8:(b + 1) * unit * 8], padded_tri[u * unit * 8:(u + 1) * unit * 8])
+        seen.append(u)
+        valid = block[block[:, 6] != 0]
+        cent = 0.5 * (valid[:, 0:3].min(0).values + valid[:, 3:6].max(0).values)
+        dist.append(float(((cent - CAMERA_POS) ** 2).sum()))
+    assert sorted(seen) == list(range(len(seen))) and dist == sorted(dist)
+
+
+def _walk(o, d, tri, leaf, hierarchy):
+    """The sequential sweep, written out: leaves in storage order, each
+    valid leaf's slab test against the best hit so far, the rows of each
+    leaf entered one by one (the triangle test of ``nearest_hit``, the
+    lexicographic (t, original index) minimum);
+    with ``hierarchy``, a super-group's or a group's test at its first leaf
+    gates its leaves. Returns ((t, idx, hit, front, row), leaves, groups,
+    super-groups entered)."""
+    n, k_size = o.shape[0], tri.shape[0] // leaf.shape[0]
+    groups, supers = leaf_groups(leaf)
+    inv = [safe_inv(d[:, k]) for k in range(3)]
+    no_idx = torch.iinfo(torch.int32).max
+    best_t = torch.full((n,), BIG)
+    best_idx = torch.full((n,), no_idx, dtype=torch.int32)
+    best_row = torch.zeros(n, dtype=torch.int64)
+    front = torch.zeros(n, dtype=torch.bool)
+    counts = [torch.zeros(n, dtype=torch.int32) for _ in range(3)]
+    open_s = open_g = torch.ones(n, dtype=torch.bool)
+
+    def enters(box):
+        passes, enter = leaf_slabs(box[None], o, inv)
+        return (box[6] != 0) & passes[:, 0] & (enter[:, 0] < best_t)
+
+    for lf in range(leaf.shape[0]):
+        if hierarchy and lf % (GROUP_SIZE * SUPER_SIZE) == 0:
+            open_s = enters(supers[lf // (GROUP_SIZE * SUPER_SIZE)])
+            counts[2] += open_s.to(torch.int32)
+        if hierarchy and lf % GROUP_SIZE == 0:
+            open_g = open_s & enters(groups[lf // GROUP_SIZE])
+            counts[1] += open_g.to(torch.int32)
+        want = open_g & enters(leaf[lf])
+        counts[0] += want.to(torch.int32)
+        r0 = lf * k_size
+        tt, valid, nd = _tri_test(o, d, tri[r0:r0 + k_size])
+        for k in range(k_size):
+            t, idx = tt[:, k], tri[r0 + k, 17].to(torch.int32)
+            take = want & valid[:, k] & ((t < best_t) | ((t == best_t) & (idx < best_idx)))
+            best_t = torch.where(take, t, best_t)
+            best_idx = torch.where(take, idx, best_idx)
+            best_row = torch.where(take, r0 + k, best_row)
+            front = torch.where(take, nd[:, k] < 0.0, front)
+    hit = best_idx != no_idx
+    return (best_t, torch.where(hit, best_idx, 0), hit, front, best_row), *counts
+
+
+@pytest.mark.parametrize("near_to_far", [False, True], ids=["morton", "near_to_far"])
+@pytest.mark.parametrize("leaf_size", [8, 16])
+@pytest.mark.parametrize("kind", ["camera", "random", "vertex"])
+def test_group_sweep_equals_flat_walk(field520, kind, leaf_size, near_to_far):
+    o, d = _rays(field520, kind, n=768, seed=leaf_size + 1)
+    tri, leaf = _pack(field520, leaf_size, near_to_far)
+    flat, flat_leaves, _, _ = _walk(o, d, tri, leaf, hierarchy=False)
+    walked, *walked_counts = _walk(o, d, tri, leaf, hierarchy=True)
+    counts = [torch.zeros(o.shape[0], dtype=torch.int32) for _ in range(3)]
+    got = nearest_hit_leaves(o, d, tri, leaf, visits=counts[0], group_visits=counts[1], super_visits=counts[2])
+    for a, b, c, what in zip((*got[:4], got[4]), flat, walked, ("t", "idx", "hit", "front", "row")):
+        assert torch.equal(a, b), f"{what} differs from the flat walk"
+        assert torch.equal(c, b), f"the walked hierarchy's {what} differs from the flat walk"
+    assert torch.equal(counts[0], flat_leaves) and torch.equal(walked_counts[0], flat_leaves)
+    for k, what in ((1, "groups"), (2, "super-groups")):
+        assert torch.equal(counts[k], walked_counts[k]), what
+    assert flat[2].float().mean() > 0.3
+    # the groups' tests skip leaf tests
+    assert GROUP_SIZE * counts[1].float().mean() < (leaf[:, 6] != 0).sum()
+    if (kind, leaf_size, near_to_far) == ("random", 16, True):
+        jscene = jscenes.build_tri_field(520, 3, glass=True)
+        rec = jax_nearest_hit(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), jscene)
+        hit = np.asarray(rec.hit)
+        np.testing.assert_array_equal(got[2].numpy(), hit)
+        np.testing.assert_array_equal(got[1].numpy()[hit], np.asarray(rec.tri_index)[hit])
+        np.testing.assert_array_equal(got[3].numpy()[hit], np.asarray(rec.front_face)[hit])
+        np.testing.assert_allclose(got[0].numpy()[hit], np.asarray(rec.t)[hit], rtol=1e-5)

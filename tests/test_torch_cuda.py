@@ -271,15 +271,19 @@ def _assert_residuals_equal(got, ref):
 def test_leaf_megakernel_equals_plain(cuda_device, injected):
     args, leaf = _field_case(cuda_device, injected)
     n, spp, bounces = args[5].numel(), args[7], args[8]
-    counts = [torch.zeros(n, dtype=torch.int32, device=cuda_device) for _ in range(4)]
+    counts = [torch.zeros(n, dtype=torch.int32, device=cuda_device) for _ in range(8)]
     before = (build.RENDER_LEAVES.launches, build.RENDER_LEAVES_RESIDUALS.launches)
-    fwd = render_rays(*args, counts[0], leaf_pack=leaf, visits=counts[1])
+    fwd = render_rays(*args, counts[0], leaf_pack=leaf, visits=counts[1], group_visits=counts[2],
+                      super_visits=counts[3])
     got = render_rays_residuals(*args, out=_garbage(spp, bounces, n, cuda_device), leaf_pack=leaf)
     torch.cuda.synchronize()
     assert (build.RENDER_LEAVES.launches, build.RENDER_LEAVES_RESIDUALS.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got[0], fwd)
-    ref = render_rays_reference(*args, counts[2], residuals=True, leaf_pack=leaf, visits=counts[3])
-    assert torch.equal(counts[0], counts[2]) and torch.equal(counts[1], counts[3])
+    ref = render_rays_reference(*args, counts[4], residuals=True, leaf_pack=leaf, visits=counts[5],
+                                group_visits=counts[6], super_visits=counts[7])
+    for k in range(4):  # live ray-steps, leaves, groups and super-groups entered
+        assert torch.equal(counts[k], counts[4 + k]), k
+    assert int(counts[3].sum()) > 0
     _assert_residuals_equal(got, ref)
     assert (got[4] == 0).any() and (got[4] == -1).any()
 
@@ -291,23 +295,59 @@ def test_sorted_scheduler_equals_plain_and_megakernel(cuda_device, injected):
     cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
     n = px.numel()
     wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
-    counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+    counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(8)]
     kernels = (build.WAVEFRONT_CAMERA, build.WAVEFRONT_BOUNCE, build.WAVEFRONT_INTEGRATE)
     before = [k.launches for k in kernels]
     got = render_rays_wavefront(
-        *wf_args, save_residuals=True, steps=counts[0], visits=counts[1], out=_garbage(spp, bounces, n, cuda_device)
+        *wf_args, save_residuals=True, steps=counts[0], visits=counts[1], out=_garbage(spp, bounces, n, cuda_device),
+        group_visits=counts[2], super_visits=counts[3],
     )
     fwd = render_rays_wavefront(*wf_args)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2 * (bounces - 1), 2]
     assert torch.equal(got[0], fwd)
-    ref = render_rays_wavefront_reference(*wf_args, save_residuals=True, steps=counts[2], visits=counts[3])
-    assert torch.equal(counts[0], counts[2]) and torch.equal(counts[1], counts[3])
+    ref = render_rays_wavefront_reference(
+        *wf_args, save_residuals=True, steps=counts[4], visits=counts[5], group_visits=counts[6],
+        super_visits=counts[7],
+    )
+    for k in range(4):  # live ray-steps, leaves, groups and super-groups entered
+        assert torch.equal(counts[k], counts[4 + k]), k
+    assert int(counts[3].sum()) > 0
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
     _assert_residuals_equal(got, ref)
     # one source of path arithmetic: the same paths as the leaf megakernel
     mega = render_rays_residuals(*args, leaf_pack=leaf)
     for a, b in zip(got, mega):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_leaf_kernels_on_morton_pack_equal_plain(cuda_device):
+    """The Morton-ordered pack of pack_scene_leaves, whose last group and
+    super-group are ragged (33 leaves of 16: groups of 8, 8, 8, 8 and 1):
+    both leaf sweeps and their counts of boxes entered equal the plain
+    versions'."""
+    args, _ = _field_case(cuda_device, injected=False)
+    tri, _, _, leaf = pack_scene_leaves(build_tri_field(520, seed=3, glass=True, device=cuda_device), leaf_size=16)
+    args = (*args[:2], tri, *args[3:])
+    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    n = px.numel()
+    wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
+    counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(6)]
+    got = render_rays_wavefront(*wf_args, save_residuals=True, visits=counts[0], group_visits=counts[1],
+                                super_visits=counts[2])
+    ref = render_rays_wavefront_reference(*wf_args, save_residuals=True, visits=counts[3], group_visits=counts[4],
+                                          super_visits=counts[5])
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    for k in range(3):
+        assert torch.equal(counts[k], counts[3 + k]), k
+    mega = [torch.zeros(n, dtype=torch.int32, device=cuda_device) for _ in range(3)]
+    xyz = render_rays(*args, leaf_pack=leaf, visits=mega[0], group_visits=mega[1], super_visits=mega[2])
+    assert torch.equal(xyz, got[0])
+    for k in range(3):
+        assert torch.equal(mega[k], counts[k].sum(0)), k
 
 
 @pytest.mark.cuda
