@@ -26,7 +26,11 @@ Phases, each fatal on failure:
    CORNELL at that frame's ray count, the residual (bit-equal) and replay
    kernels on the training frame (Cornell 1920x1080, 16 spp, 8 bounces);
    the lane efficiency of the render and residual kernels there, live
-   ray-steps / (32 x warp sweeps);
+   ray-steps / (32 x warp sweeps); the replay's time beside its bound and
+   the card's name and power limit, its launch shape (block size, resident
+   blocks an SM from the occupancy API) for the training frame and for 70
+   materials and 20 bounces (the unpacked form), and ptxas's registers and
+   spills of each of its instantiations;
 5. the main path, once, as a user runs it: ``python -m
    spectral_tpu_torch.main --save`` with the default Cornell box into a
    temporary directory; the megakernel's launch count must equal the chunk
@@ -80,12 +84,16 @@ behind ops/cuda/render_kernel.py::LEAF_SIZE) and prints one JSON line.
 ``python3 chip_smoke.py --ab BASE [OTHER ...]`` times the render kernels
 (B2 at the default frame, B3 at the training frame, B5 and the sorted
 kernels at the 10k field frame, the sorted kernels at the 200k field
+frame) and the replay (B4, on B3's residuals of the training frame, with
+and without the background knots, and on B5's residuals of the 10k field
 frame) of other checkouts of the port against this one's, one process
 each, in the order BASE, this, OTHER..., this, BASE: a checkout is any
 directory holding a ``spectral_tpu_torch`` package, such as an unpacked
 parent commit (``git archive``) or a copy with one compiled choice
-changed. Every output must be bit-equal to this checkout's (digests of
-the renders and residuals). ``--time ROOT`` is one such process.
+changed. Every render output must be bit-equal to this checkout's
+(digests of the renders and residuals), and every replay output within
+REPLAY_REL of its column's largest value (the replay sums over rays in an
+order its launch shape sets). ``--time ROOT`` is one such process.
 """
 
 from __future__ import annotations
@@ -339,6 +347,29 @@ def replay_work(matres, n_mats: int, sell: bool) -> tuple[float, float]:
         flops += spp * n * SELL_FLOPS_PER_SAMPLE + present * SELL_FLOPS_PER_MATERIAL
         nbytes += 8 * spp * n
     return flops, nbytes
+
+
+def replay_shapes(dev, n: int, n_mats: int, bounces: int) -> None:
+    """Print the replay's launch shape (occupancy API) for the training
+    frame and each option, and ptxas's registers and spills of each
+    instantiation of csrc/grad_kernel.cu."""
+    from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.ops.cuda.grad_kernel import launch_shape
+
+    for bg, sell in ((True, False), (True, True), (False, False), (False, True)):
+        for m, b in ((n_mats, bounces), (70, 20)):
+            shape = launch_shape(n, m, b, bg, sell, dev)
+            log(f"  launch shape, {m} materials, {b} bounces, want_bg {bg}, want_sell {sell}: {shape}, "
+                f"{shape['blocks_per_sm'] * shape['block'] // 32} resident warps an SM")
+    name = None
+    for line in build.GRAD.build_log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+            form = re.search(r"replay_kernelILb(\d)ELb(\d)ELb(\d)E", name)
+            name = f"replay_kernel<{','.join(form.groups())}>" if form else name
+        elif name and ("registers" in line or "spill" in line):
+            log(f"  {name} (kWantBg, kWantSell, kPacked): {line.split(':', 1)[-1].strip()}")
 
 
 def garbage(spp: int, bounces: int, n: int, dev) -> tuple:
@@ -603,6 +634,7 @@ def time_kernels(root: str) -> int:
     from spectral_tpu_torch.models.scenes import CORNELL, build_scene, build_tri_field, scene_camera
     from spectral_tpu_torch.ops.cuda import build
     from spectral_tpu_torch.ops.cuda import render_kernel as rk
+    from spectral_tpu_torch.ops.cuda.grad_kernel import render_grads as rk_grads
     from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
     from spectral_tpu_torch.runtime.render_manager import chunk_seed
 
@@ -610,7 +642,7 @@ def time_kernels(root: str) -> int:
         raise SystemExit(f"--time {root}: imported {spectral_tpu_torch.__file__} instead")
     dev = torch.device("cuda")
     build.build_all(build.KERNELS.values())
-    ptxas = [ln.split(":", 1)[-1].strip() for k in (build.RENDER, build.WAVEFRONT_CAMERA)
+    ptxas = [ln.split(":", 1)[-1].strip() for k in (build.RENDER, build.WAVEFRONT_CAMERA, build.GRAD)
              for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
     tri, mat, tab = rk.pack_scene(build_scene(CORNELL, dev))
 
@@ -639,6 +671,7 @@ def time_kernels(root: str) -> int:
             h.update(x.contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
+    replay_in = {}
     for name, (args, kw, fn, reps) in runs.items():
         steps = torch.zeros(args[5].numel(), dtype=torch.int32, device=dev)
         extra = {"warp_steps": warp_buffer(args[5].numel(), dev)} if warps and not kw else {}
@@ -649,6 +682,27 @@ def time_kernels(root: str) -> int:
             live = int(steps.to(torch.int64).sum())
             lanes[name] = live / (32 * int(extra["warp_steps"].to(torch.int64).sum()))
         ms[name] = cuda_ms(lambda: fn(*args, **kw), reps)
+        if name.endswith("residuals"):
+            replay_in[name] = (args[3], args[4], out[1:], args[7], args[8])
+        del out
+    # the replay on those residuals (its sums over rays are ordered by the
+    # launch shape, so its values are compared within REPLAY_REL, not by digest)
+    grads, shapes = {}, {}
+    for name, src in (("grad", "render_residuals"), ("grad_field", "render_leaves_residuals")):
+        r_mat, r_tab, res, r_spp, r_b = replay_in.pop(src)
+        g = torch.from_numpy(np.random.default_rng(5).normal(size=(res[0].shape[1], 3)).astype(np.float32)).to(dev)
+        replay = lambda: rk_grads(r_mat, r_tab, g, *res, r_spp, r_b, want_bg_grads=True)  # noqa: E731
+        got = replay()
+        grads[name] = [x.double().cpu().flatten().tolist() for x in got]
+        ms[name] = cuda_ms(replay, 10)
+        if name == "grad":
+            # the same replay without the background knots, and its launch shape
+            ms["grad_nobg"] = cuda_ms(lambda: rk_grads(r_mat, r_tab, g, *res, r_spp, r_b), 10)
+            shape_fn = getattr(sys.modules[rk_grads.__module__], "launch_shape", None)
+            if shape_fn is not None:
+                shapes["grad"] = shape_fn(res[0].shape[1], r_mat.shape[0], r_b, True, False, dev)
+        del res, g, got
+    torch.cuda.empty_cache()
     boxes = {}
     big = field_args(build_tri_field(BIG_FIELD_TRIS, 0, device=dev), FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
                      None, chunk_seed(0, 0, FIELD_W))
@@ -660,7 +714,7 @@ def time_kernels(root: str) -> int:
                    "wavefront_integrate" + tag: int_ms, "sort_and_gather" + tag: glue_ms})
         boxes["sorted" + tag] = {"bounce_live_steps": live, "camera": b_cam, "bounces": b_bounce}
     print(json.dumps({"root": os.path.abspath(root), "ms": ms, "digest": digest, "lane_efficiency": lanes,
-                      "boxes": boxes, "ptxas": ptxas}), flush=True)
+                      "boxes": boxes, "ptxas": ptxas, "grads": grads, "replay_shape": shapes}), flush=True)
     return 0
 
 
@@ -681,14 +735,30 @@ def ab_runs(roots: list[str]) -> int:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"--time {root} failed")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        log(json.dumps({k: runs[-1].get(k) for k in ("root", "ms", "lane_efficiency", "boxes")}))
-    ref = runs[1]["digest"]
+        log(json.dumps({k: runs[-1].get(k) for k in ("root", "ms", "lane_efficiency", "boxes", "replay_shape")}))
+    ref, ref_grads = runs[1]["digest"], runs[1]["grads"]
     for r in runs:
         r["bit_equal"] = {k: r["digest"].get(k) == v for k, v in ref.items()}
+        grads = r.pop("grads")
+        r["replay_rel"] = {k: replay_rel(grads[k], v) for k, v in ref_grads.items()}
     print(json.dumps({"ab": runs, "device": smi}), flush=True)
     if not all(all(r["bit_equal"].values()) for r in runs):
         raise SystemExit("--ab: a checkout's outputs differ from this one's")
+    if not all(v <= REPLAY_REL for r in runs for v in r["replay_rel"].values()):
+        raise SystemExit("--ab: a checkout's replay differs from this one's beyond REPLAY_REL")
     return 0
+
+
+def replay_rel(got: list, ref: list) -> float:
+    """The largest error of a replay's outputs (d_coeffs [M, 3], d_power,
+    d_bg) against another's, over the largest value of its column."""
+    worst = 0.0
+    for a, b, width in zip(got, ref, (3, 1, 1)):
+        a, b = np.asarray(a).reshape(-1, width), np.asarray(b).reshape(-1, width)
+        for j in range(width):
+            err, scale = float(np.abs(a[:, j] - b[:, j]).max()), float(np.abs(b[:, j]).max())
+            worst = max(worst, err / scale if scale > 0 else (0.0 if err == 0 else float("inf")))
+    return worst
 
 
 def main() -> int:
@@ -870,7 +940,9 @@ def main() -> int:
     grad_ms = cuda_ms(lambda: render_grads(mat, tab, g, *t_res, t_spp, t_b, want_bg_grads=True), 10)
     gr_flops, gr_bytes = replay_work(t_res[3], mat.shape[0], False)
     gr_bound, gr_by = bound_ms(gr_flops, gr_bytes)
-    log(f"  kernel {grad_ms} ms (plain {grad_plain_ms} ms), {gr_flops} flops, {gr_bytes} bytes, bound {gr_bound} ms ({gr_by})")
+    log(f"  kernel {grad_ms} ms (plain {grad_plain_ms} ms), {gr_flops} flops, {gr_bytes} bytes, bound {gr_bound} ms "
+        f"({gr_by}), {grad_ms / gr_bound:.2f}x the bound; {smi}")
+    replay_shapes(dev, t_rays, mat.shape[0], t_b)
     del t_res, g
     torch.cuda.empty_cache()
 

@@ -170,7 +170,7 @@ RENDER_LEAVES_RESIDUALS = Kernel(
 )
 GRAD = Kernel(
     "grad", "grad_kernel.cu", "grad_launch",
-    [P, I, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+    [P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P],
 )
 WAVEFRONT_CAMERA = Kernel(
     "wavefront_camera", "wavefront_kernel.cu", "wavefront_camera_launch",

@@ -144,6 +144,21 @@ def render_grads_reference(
     return tuple(ret)
 
 
+def launch_shape(n, n_mats, bounces, want_bg_grads, want_sellmeier, device) -> dict:
+    """How render_grads launches the kernel on a CUDA ``device``: ``grid``
+    blocks of ``block`` threads (the block size of most resident warps),
+    ``blocks_per_sm`` resident (occupancy API), ``smem`` dynamic shared
+    bytes a block, and ``packed``: 1 for the form that packs the bounce
+    counts into registers (at most 16 materials and 15 bounces)."""
+    fn = build.GRAD.symbol("grad_grid", [build.I] * 5 + [ctypes.POINTER(ctypes.c_int)])
+    shape = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = fn(n, n_mats, bounces, int(want_bg_grads), int(want_sellmeier), shape)
+    if rc != 0:
+        raise RuntimeError(f"grad: sizing the launch failed with CUDA error {rc}")
+    return dict(zip(("grid", "block", "blocks_per_sm", "smem", "packed"), shape))
+
+
 def render_grads(
     mat_pack, tables, g, hero, n_valid, power, matres, spp, bounces,
     want_bg_grads=False, want_sellmeier=False,
@@ -161,26 +176,21 @@ def render_grads(
         )
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
-    grid_fn = build.GRAD.symbol("grad_grid", [build.I] * 4 + [ctypes.POINTER(ctypes.c_int)])
     dev = g.device
     n, n_mats = g.shape[0], mat_pack.shape[0]
     mat_pack, tables, g, hero, n_valid, power, matres = (
         x.contiguous() for x in (mat_pack, tables, g, hero, n_valid, power, matres)
     )
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        rc = grid_fn(n, n_mats, int(want_bg_grads), int(want_sellmeier), ctypes.byref(grid))
-    if rc != 0:
-        raise RuntimeError(f"grad: sizing the launch failed with CUDA error {rc}")
+    shape = launch_shape(n, n_mats, bounces, want_bg_grads, want_sellmeier, dev)
     row = 4 * n_mats + (N_CIE_SAMPLES if want_bg_grads else 0)
-    partial = torch.empty((grid.value, row), dtype=torch.float32, device=dev)
+    partial = torch.empty((shape["grid"], row), dtype=torch.float32, device=dev)
     out = torch.empty(row, dtype=torch.float32, device=dev)
     sell = [torch.empty((spp, n), dtype=torch.float32, device=dev) for _ in range(2)] if want_sellmeier else [None, None]
     build.GRAD.launch(
         dev,
         mat_pack.data_ptr(), n_mats, tables.data_ptr(), g.data_ptr(),
         hero.data_ptr(), n_valid.data_ptr(), power.data_ptr(), matres.data_ptr(),
-        n, spp, bounces, int(want_bg_grads), int(want_sellmeier), grid.value,
+        n, spp, bounces, int(want_bg_grads), int(want_sellmeier), shape["grid"], shape["block"],
         partial.data_ptr(), out.data_ptr(),
         None if sell[0] is None else sell[0].data_ptr(),
         None if sell[1] is None else sell[1].data_ptr(),

@@ -70,6 +70,9 @@ from spectral_tpu_torch.ops.intersect import (
     safe_inv,
 )
 
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
+
 FIELDS = [(520, 3, False), (520, 3, True), (10008, 0, False)]
 
 

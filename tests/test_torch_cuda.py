@@ -29,7 +29,7 @@ from spectral_tpu_torch.diff import render_chunk_diff_fused
 from spectral_tpu_torch.models.camera import camera_vector
 from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, build_tri_field, scene_camera
 from spectral_tpu_torch.ops.cuda import build
-from spectral_tpu_torch.ops.cuda.grad_kernel import render_grads, render_grads_reference
+from spectral_tpu_torch.ops.cuda.grad_kernel import launch_shape, render_grads, render_grads_reference
 from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     n_uniforms,
@@ -211,6 +211,84 @@ def test_residual_and_replay_kernels_equal_plain(cuda_device, scene_id, injected
     for a, b in zip(got[3:], want[3:]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-6 * float(b.abs().max()))
     assert got[0].abs().sum() > 0
+
+
+def _synthetic_replay(dev, n_mats, bounces, kind, n=1000, spp=2, seed=0):
+    """Residuals for the replay from a numpy seed: TRIS's materials tiled to
+    n_mats rows (c0..c2 perturbed), TRIS's tables with D65 as a positive
+    background, heroes in [360, 830), n_valid in {0, 1, 7}, powers in
+    [0, 2), material residuals in {-1, 0, 1..n_mats} ("random"), all -1
+    ("miss") or all 0 ("none": paths that hit nothing), a normal
+    cotangent."""
+    rng = np.random.default_rng(seed)
+    _, mat, tab = pack_scene(build_scene(TRIS, "cpu"))
+    mat = mat[torch.arange(n_mats) % mat.shape[0]].clone()
+    mat[:, :3] *= torch.from_numpy(rng.uniform(0.9, 1.1, (n_mats, 3)).astype(np.float32))
+    tab = tab.clone()
+    tab[4] = tab[3]
+    hero = rng.uniform(360.0, 830.0, (spp, n)).astype(np.float32)
+    n_valid = rng.choice(np.asarray([0.0, 1.0, 7.0], np.float32), (spp, n))
+    power = rng.uniform(0.0, 2.0, (spp, 7, n)).astype(np.float32)
+    if kind == "random":
+        matres = rng.choice(np.arange(-1, n_mats + 1, dtype=np.int32), (spp, bounces, n))
+    else:
+        matres = np.full((spp, bounces, n), -1 if kind == "miss" else 0, np.int32)
+    g = rng.normal(size=(n, 3)).astype(np.float32)
+    host = (mat, tab, *(torch.from_numpy(x) for x in (g, hero, n_valid, power, matres)))
+    return tuple(x.to(dev) for x in host)
+
+
+def _check_replay_kernel(dev, n_mats, bounces, want_bg, want_sell, kind, n):
+    spp = 2
+    args = _synthetic_replay(dev, n_mats, bounces, kind, n=n, spp=spp)
+    shape = launch_shape(n, n_mats, bounces, want_bg, want_sell, dev)
+    assert shape["packed"] == int(n_mats <= 16 and bounces <= 15)
+    assert shape["block"] in (32, 64, 128, 256) and shape["blocks_per_sm"] >= 1
+    before = build.GRAD.launches
+    got = render_grads(*args, spp, bounces, want_bg_grads=want_bg, want_sellmeier=want_sell)
+    again = render_grads(*args, spp, bounces, want_bg_grads=want_bg, want_sellmeier=want_sell)
+    torch.cuda.synchronize()
+    assert build.GRAD.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # deterministic reduction
+    want = render_grads_reference(*args, spp, bounces, want_bg_grads=want_bg, want_sellmeier=want_sell)
+    assert len(got) == len(want) == 2 + want_bg + 2 * want_sell
+    assert all(torch.isfinite(x).all() for x in got)
+    _columns_close(got[0], want[0])
+    _columns_close(got[1][:, None], want[1][:, None])
+    if want_bg:
+        _columns_close(got[2][:, None], want[2][:, None])
+    if want_sell:
+        # chip_smoke.py::check_replay's per-value test
+        for a, b in zip(got[-2:], want[-2:]):
+            err = (a - b).abs()
+            assert int((err > 1e-6 * float(b.abs().max()) + 2e-4 * b.abs()).sum()) == 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mats", (1, 7, 9, 70))
+@pytest.mark.parametrize("bounces", (1, 8, 20))
+@pytest.mark.parametrize("want_bg", (True, False), ids=("bg", "nobg"))
+@pytest.mark.parametrize("want_sell", (True, False), ids=("sell", "nosell"))
+def test_replay_kernel_shapes_equal_plain(cuda_device, n_mats, bounces, want_bg, want_sell):
+    """The replay on synthetic residuals, 1000 rays (not a multiple of a
+    block): the packed form (at most 16 materials and 15 bounces) and the
+    other one; 70 materials are past a 64-bit presence mask, 20 bounces
+    past 4-bit counts."""
+    got = _check_replay_kernel(cuda_device, n_mats, bounces, want_bg, want_sell, "random", 1000)
+    assert got[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mats", (7, 70))
+@pytest.mark.parametrize("kind", ("miss", "none"))
+def test_replay_kernel_all_miss_and_no_hit(cuda_device, n_mats, kind):
+    """Paths that all miss (only the background knots move) and paths that
+    hit nothing (residual 0: every gradient is 0), on 37 rays."""
+    got = _check_replay_kernel(cuda_device, n_mats, 8, True, True, kind, 37)
+    assert float(got[0].abs().sum()) == 0 and float(got[1].abs().sum()) == 0
+    assert (float(got[2].abs().sum()) > 0) == (kind == "miss")
 
 
 @pytest.mark.cuda

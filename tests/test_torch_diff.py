@@ -1,7 +1,8 @@
 """The port's fused-gradient training path against the JAX package, on the
 CPU.
 
-(d) The composition against JAX's, on one interpret-mode forward: sky-lit
+(d) The composition against JAX's, on one interpret-mode forward (the JAX
+    side stored in tests/torch_jax_refs.npz): sky-lit
     PRISM (gray background, carried over with scene_from_numpy), 16x16,
     4 spp, 4 bounces, the uniform planes of PRNGKey(13) handed over as
     numpy, reparam_glass = 2 and a seeded cotangent. The JAX side is what
@@ -31,18 +32,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spectral_tpu.diff.fast import _fused_fwd_impl as jax_fused_fwd_impl
-from spectral_tpu.diff.fast import _sellmeier_grads_from_replay as jax_sell_grads
 from spectral_tpu.models.scenes import _scene_from
 from spectral_tpu.models.scenes import build_scene as jax_build_scene
-from spectral_tpu.ops.pallas.grad_kernel import render_grads_pallas
-from spectral_tpu.ops.rgb2spec import srgb_to_illuminance_spectrum
 from spectral_tpu_torch.diff import render_chunk_diff_fused, render_chunk_diff_fused_accum
 from spectral_tpu_torch.diff.fast import _fused_fwd_impl, _sellmeier_grads_from_replay
 from spectral_tpu_torch.diff.spectral_reparam import reparam_hero
@@ -66,21 +61,16 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
 from spectral_tpu_torch.parallel import apply_params, train_step_fused, trainable_params
 from spectral_tpu_torch.utils.constants import LAMBDA_MAX, LAMBDA_MIN
 
+import torch_jax_refs as refs
+
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
+
 GLASS = 2  # the PRISM glass row
 
 
-def _jax_scene_dict(s) -> dict:
-    d = {f.name: np.asarray(getattr(s, f.name)) for f in dataclasses.fields(s) if f.name not in ("materials", "bvh")}
-    d["materials"] = {f.name: np.asarray(getattr(s.materials, f.name)) for f in dataclasses.fields(s.materials)}
-    return d
-
-
-def _sky_lit_jax(scene):
-    return dataclasses.replace(scene, background_spd=srgb_to_illuminance_spectrum(jnp.asarray([0.8, 0.8, 0.8])))
-
-
 def _sky_lit(scene_id):
-    return scene_from_numpy(_jax_scene_dict(_sky_lit_jax(jax_build_scene(scene_id))), "cpu")
+    return scene_from_numpy(refs.jax_arrays(refs.sky_lit_jax(jax_build_scene(scene_id))), "cpu")
 
 
 def _leaves(mats, **extra):
@@ -101,26 +91,19 @@ def assert_columns_close(got, ref, rel=2e-4):
 
 
 def test_fused_composition_equals_jax():
-    """(d): the only interpret-mode forward of the port's gradient tests."""
-    w = h = 16
-    spp, bounces = 4, 4
+    """(d): the JAX side (its interpret-mode forward, replay and Sellmeier
+    fold) is stored in tests/torch_jax_refs.npz, case fused_prism, for
+    these inputs."""
+    x = refs.fused_prism_inputs()
+    ref = refs.outputs("fused_prism", x)
+    w, h, spp, bounces = (int(x[k]) for k in ("w", "h", "spp", "bounces"))
     n = w * h
-    jscene = _sky_lit_jax(jax_build_scene(PRISM))
-    from spectral_tpu.models.scenes import scene_camera as jax_scene_camera
+    planes, cot = x["planes"], x["cot"]
+    jxyz, jmat, jhero, jnv, jpow, jmres = (ref[k] for k in ("xyz", "mat", "hero", "n_valid", "power", "matres"))
+    jgrads = [ref[k] for k in ("d_coeffs", "d_power", "d_bg")]
+    jd_b, jd_c = ref["d_sell_b"], ref["d_sell_c"]
 
-    jcam = jax_scene_camera(PRISM, w, h)
-    planes = np.asarray(jax.random.uniform(jax.random.PRNGKey(13), (spp, n_uniforms(bounces), 1024)))
-    jxyz, jres = jax_fused_fwd_impl(jscene.materials, jscene, jcam, 0, 0, 0, w, h, spp, bounces, True, 13)
-    jmat, jtab, jhero, jnv, jpow, jmres = jres[:6]
-    cot = np.random.default_rng(99).normal(size=(h, w, 3)).astype(np.float32)
-    g_flat = jnp.concatenate([jnp.asarray(cot.reshape(n, 3)), jnp.zeros((1024 - n, 3), jnp.float32)])
-    jgrads = render_grads_pallas(
-        jmat, jtab, g_flat, jhero, jnv, jpow, jmres, spp, bounces, 1024, True,
-        want_bg_grads=True, want_sellmeier=True,
-    )
-    jd_b, jd_c = jax_sell_grads(jscene.materials, GLASS, jhero, jgrads[3], jgrads[4])
-
-    scene = scene_from_numpy(_jax_scene_dict(jscene), "cpu")
+    scene = scene_from_numpy(x["scene"], "cpu")
     cam = scene_camera(PRISM, w, h, "cpu")
     rand = torch.from_numpy(planes[:, :, :n].copy())
     mats, leaves = _leaves(scene.materials)
@@ -214,7 +197,7 @@ def test_fd_sellmeier_frozen_target_slab():
     glass = mb.dielectric(np.asarray(SELLMEIER_FLINT_GLASS_B), np.asarray(SELLMEIER_FLINT_GLASS_C))
     soup = TriSoup()
     soup.box((-400, -400, -220), (955, 955, -200), glass)
-    scene = scene_from_numpy(_jax_scene_dict(_scene_from(soup, mb.build(), background_rgb=(0.35, 0.55, 0.9))), "cpu")
+    scene = scene_from_numpy(refs.jax_arrays(_scene_from(soup, mb.build(), background_rgb=(0.35, 0.55, 0.9))), "cpu")
     bounces = 4
     cam = camera_vector(scene_camera(PRISM, 32, 32, "cpu"))
     px = torch.arange(32, dtype=torch.float32).repeat(32)

@@ -20,6 +20,9 @@ from jax.experimental import pallas as pl
 
 from spectral_tpu_torch.ops.fp32 import dot3, fma
 
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
+
 N = 1 << 16
 PALLAS_SHAPE = (8, 128)
 

@@ -1,7 +1,8 @@
 """The port's fused-backward pieces against the JAX package's, on the CPU.
 
 (a) The replay's plain version (ops/cuda/grad_kernel.py::
-    render_grads_reference) against render_grads_pallas in interpret mode,
+    render_grads_reference) against render_grads_pallas in interpret mode
+    (its outputs stored in tests/torch_jax_refs.npz, case replay_tris),
     background and Sellmeier outputs on, on synthetic residuals for TRIS
     (9 materials, so no padding of M is assumed): 1024 rays, 2 spp, 4
     bounces, material residuals in {-1, 0, 1..9}, n_valid in {0, 1, 7},
@@ -32,17 +33,19 @@ import torch
 
 from spectral_tpu.diff.fast import _sellmeier_grads_from_replay as jax_sell_grads
 from spectral_tpu.diff.spectral_reparam import reparam_hero as jax_reparam_hero
-from spectral_tpu.models.scenes import PRISM, TRIS
+from spectral_tpu.models.scenes import PRISM
 from spectral_tpu.models.scenes import build_scene as jax_build_scene
-from spectral_tpu.ops.pallas.grad_kernel import render_grads_pallas
-from spectral_tpu.ops.pallas.render_kernel import pack_scene as jax_pack_scene
-from spectral_tpu.ops.rgb2spec import srgb_to_illuminance_spectrum
 from spectral_tpu.ops.sellmeier import sellmeier_index as jax_sellmeier_index
 from spectral_tpu.utils.constants import SELLMEIER_FLINT_GLASS_B, SELLMEIER_FLINT_GLASS_C
 from spectral_tpu_torch.diff.fast import _sellmeier_grads_from_replay
 from spectral_tpu_torch.diff.spectral_reparam import SMAX, reparam_hero
 from spectral_tpu_torch.ops.cuda.grad_kernel import lut_slope, render_grads, render_grads_reference
 from spectral_tpu_torch.ops.sellmeier import sellmeier_index
+
+import torch_jax_refs as refs
+
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
 
 N, SPP, BOUNCES = 1024, 2, 4
 
@@ -62,32 +65,15 @@ def assert_columns_close(got, ref, rel=2e-4):
         assert err <= rel * scale, f"column {j}: max abs {err} vs bound {rel * scale}"
 
 
-def _synthetic_tris():
-    rng = np.random.default_rng(20240521)
-    scene = dataclasses.replace(
-        jax_build_scene(TRIS), background_spd=srgb_to_illuminance_spectrum(jnp.asarray([0.8, 0.8, 0.8]))
-    )
-    _, mat, tab = jax_pack_scene(scene)
-    hero = rng.uniform(360.0, 830.0, (SPP, N)).astype(np.float32)
-    n_valid = rng.choice(np.asarray([0.0, 1.0, 7.0], np.float32), (SPP, N))
-    power = rng.uniform(0.0, 2.0, (SPP, 7, N)).astype(np.float32)
-    matres = rng.choice(np.arange(-1, 10, dtype=np.int32), (SPP, BOUNCES, N))
-    g = rng.normal(size=(N, 3)).astype(np.float32)
-    return np.asarray(mat), np.asarray(tab), g, hero, n_valid, power, matres
-
-
 @pytest.fixture(scope="module")
 def synthetic():
-    """The synthetic residuals, and the JAX replay of them (the one
-    interpret-mode call of this file)."""
-    mat, tab, g, hero, n_valid, power, matres = _synthetic_tris()
-    ref = render_grads_pallas(
-        jnp.asarray(mat), jnp.asarray(tab), jnp.asarray(g), jnp.asarray(hero), jnp.asarray(n_valid),
-        jnp.asarray(power), jnp.asarray(matres), SPP, BOUNCES, 1024, True,
-        want_bg_grads=True, want_sellmeier=True,
-    )
-    port_in = (_t(mat), _t(tab[:5, :95]), _t(g), _t(hero), _t(n_valid), _t(power), _t(matres))
-    return port_in, [np.asarray(r) for r in ref]
+    """The synthetic residuals, and the JAX replay of them
+    (render_grads_pallas in interpret mode, stored in
+    tests/torch_jax_refs.npz for these inputs)."""
+    x = refs.replay_tris_inputs()
+    ref = refs.outputs("replay_tris", x)
+    port_in = (_t(x["mat"]), _t(x["tab"][:5, :95]), *(_t(x[k]) for k in ("g", "hero", "n_valid", "power", "matres")))
+    return port_in, [ref[k] for k in ("d_coeffs", "d_power", "d_bg", "sell_a", "sell_b")]
 
 
 def test_replay_equals_pallas_interpret(synthetic):

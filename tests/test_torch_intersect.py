@@ -2,7 +2,8 @@
 
 ``spectral_tpu_torch.ops.cuda.intersect_kernel.intersect`` runs its plain
 version for CPU tensors; it is held against the Pallas intersect kernel in
-interpret mode and against the XLA ``nearest_hit``, on numpy rays from a
+interpret mode (its outputs stored in tests/torch_jax_refs.npz) and
+against the XLA ``nearest_hit``, on numpy rays from a
 seed. Hit flags, triangle ids and faces must be equal. t must agree within
 rtol 1e-6 with the Pallas kernel, whose arithmetic the port mirrors
 (ops/fp32.py). The XLA version computes t through matrix products, in
@@ -21,11 +22,15 @@ import torch
 
 from spectral_tpu.models.scenes import build_scene as jax_build_scene
 from spectral_tpu.ops.intersect import nearest_hit as jax_nearest_hit
-from spectral_tpu.ops.pallas.intersect_kernel import intersect_pallas
 from spectral_tpu.ops.pallas.intersect_kernel import pack_tris as jax_pack_tris
 from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene
 from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
 from spectral_tpu_torch.ops.intersect import BIG, nearest_hit
+
+import torch_jax_refs as refs
+
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
 
 N_RAYS = 512
 
@@ -45,13 +50,13 @@ def test_pack_tris_equals_jax():
 
 
 def test_intersect_equals_pallas_interpret():
+    """intersect_pallas in interpret mode, its outputs stored in
+    tests/torch_jax_refs.npz (case intersect_cornell) for these inputs."""
     o, d = _rays(0)
     tri = pack_tris(build_scene(CORNELL, "cpu"))
+    ref = refs.outputs("intersect_cornell", dict(o=o, d=d, tri=tri.numpy()))
     t, idx, hit, front = intersect(torch.from_numpy(o), torch.from_numpy(d), tri)
-    jt, jidx, jhit, jfront = (
-        np.asarray(x)
-        for x in intersect_pallas(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tri.numpy()), interpret=True)
-    )
+    jt, jidx, jhit, jfront = (ref[k] for k in ("t", "idx", "hit", "front"))
     assert 0.5 < hit.numpy().mean() < 1.0  # both hits and misses
     np.testing.assert_array_equal(hit.numpy(), jhit)
     np.testing.assert_array_equal(idx.numpy(), jidx)

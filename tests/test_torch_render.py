@@ -4,8 +4,8 @@
     must reproduce tests/goldens/cornell_pallas_24px.npy (the JAX
     megakernel in interpret mode, 24x24, 4 spp, 3 bounces).
 (b) PRISM 16x16, 8 spp, 5 bounces on numpy planes through the JAX kernel
-    in interpret mode and through the port: the dielectric and the hero
-    collapse.
+    in interpret mode (its output stored in tests/torch_jax_refs.npz) and
+    through the port: the dielectric and the hero collapse.
 Tolerance for both: |a - b| <= 2e-3 + 1e-5 |b| per value and mean abs
 <= 2e-5. The absolute part is the JAX package's own cross-scheduler
 tolerance (tests/test_wavefront_sorted.py:70-71); the relative part covers
@@ -32,12 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from spectral_tpu.models.scenes import build_scene as jax_build_scene
-from spectral_tpu.models.scenes import scene_camera as jax_scene_camera
-from spectral_tpu.ops.pallas.render_kernel import camera_vector as jax_camera_vector
 from spectral_tpu.ops.pallas.render_kernel import n_uniforms as jax_n_uniforms
-from spectral_tpu.ops.pallas.render_kernel import pack_scene as jax_pack_scene
-from spectral_tpu.ops.pallas.render_kernel import render_rays_pallas
 from spectral_tpu_torch import main as port_main
 from spectral_tpu_torch.config import RenderParams
 from spectral_tpu_torch.io.image import decode_bmp
@@ -53,6 +48,11 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     render_rays_reference,
 )
 from spectral_tpu_torch.runtime.render_manager import RenderManager, chunk_seed
+
+import torch_jax_refs as refs
+
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cornell_pallas_24px.npy")
@@ -88,24 +88,13 @@ def test_golden_cornell_24px():
 
 
 def test_prism_equals_pallas_interpret():
-    """(b): the only interpret-mode render of the port's tests."""
-    w = h = 16
-    spp, bounces, tile = 8, 5, 768
+    """(b): the JAX render is render_rays_pallas in interpret mode, stored
+    in tests/torch_jax_refs.npz (case prism_render) for these inputs."""
+    x = refs.prism_render_inputs()
+    ref = refs.outputs("prism_render", x)["xyz"]
+    w, h, spp, bounces = (int(x[k]) for k in ("w", "h", "spp", "bounces"))
     n = w * h
-    rand = np.random.default_rng(2024).uniform(size=(spp, n_uniforms(bounces), tile)).astype(np.float32)
-    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    px = np.zeros(tile, np.float32)
-    py = np.zeros(tile, np.float32)
-    px[:n], py[:n] = xs.ravel(), ys.ravel()
-    jscene = jax_build_scene(PRISM)
-    jcam = jax_scene_camera(PRISM, w, h)
-    tri, mat, tab = jax_pack_scene(jscene)
-    ref = np.asarray(
-        render_rays_pallas(
-            jax_camera_vector(jcam), jnp.int32(0), tri, mat, tab, jnp.asarray(px), jnp.asarray(py),
-            spp, bounces, ray_tile=tile, interpret=True, rand=jnp.asarray(rand),
-        )
-    )[:n]
+    rand = x["rand"]
     got = render_chunk(
         build_scene(PRISM, "cpu"), scene_camera(PRISM, w, h, "cpu"), 0, 0, 0, w, h, spp, bounces,
         rand=torch.from_numpy(rand[:, :, :n].copy()),

@@ -42,6 +42,9 @@ from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene
 from spectral_tpu_torch.ops.spectrum import spectrum_interp_shared
 from spectral_tpu_torch.render.wavefront import xyz_to_image
 
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "spectral_tpu_torch")
 SCENES = (jscenes.CORNELL, jscenes.PRISM, jscenes.TRIS)

@@ -5,13 +5,13 @@ build_tri_field(520, seed=3, glass=True), carried over bit for bit with
 scene_from_numpy, Cornell camera, 64x32, 2 spp, 3 bounces, numpy uniform
 planes; lit by a gray sky (as tests/test_torch_diff.py does), so that paths
 that leave the scene count and the background gradient is not zero. The
-JAX side runs once per module, in interpret mode: its BVH megakernel
-(render_rays_pallas_residuals with its MXU leaf pack). The port's side is
+JAX side is its BVH megakernel (render_rays_pallas_residuals with its MXU
+leaf pack) in interpret mode, stored in tests/torch_jax_refs.npz (case
+field_mega) for these inputs. The port's side is
 its plain leaf megakernel and its plain sorted scheduler, held bit-equal to
 each other. tests/test_torch_wavefront_grad.py holds the sorted scheduler
-and the gradients against the JAX sorted scheduler and replay (one more
-interpret forward and the replay: one file could not hold all three under a
-minute).
+and the gradients against the JAX sorted scheduler and replay (stored the
+same way).
 
 Tolerances, the JAX package's own between its two schedulers
 (tests/test_wavefront_sorted.py:70-71, 125-127): image max abs <= 2e-3,
@@ -31,23 +31,16 @@ pixel none of whose samples departed.
 
 from __future__ import annotations
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spectral_tpu.models import scenes as jscenes
 from spectral_tpu.ops.intersect import nearest_hit as jax_nearest_hit
-from spectral_tpu.ops.pallas.render_kernel import camera_vector as jax_camera_vector
-from spectral_tpu.ops.pallas.render_kernel import pack_scene_auto as jax_pack_scene_auto
-from spectral_tpu.ops.pallas.render_kernel import render_rays_pallas_residuals
-from spectral_tpu.ops.rgb2spec import srgb_to_illuminance_spectrum
 from spectral_tpu_torch.diff import render_chunk_diff_fused
 from spectral_tpu_torch.models.camera import camera_vector
 from spectral_tpu_torch.models.scenes import CORNELL, build_tri_field, scene_camera, scene_from_numpy
-from spectral_tpu_torch.ops.cuda.render_kernel import n_uniforms, pack_scene_auto, render_rays_residuals
+from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_auto, render_rays_residuals
 from spectral_tpu_torch.ops.cuda.wavefront_kernel import (
     STATE_ROWS,
     bounce_reference,
@@ -56,35 +49,29 @@ from spectral_tpu_torch.ops.cuda.wavefront_kernel import (
 )
 from spectral_tpu_torch.parallel import train_step_fused, trainable_params
 
-W_PX, H_PX, SPP, BOUNCES = 64, 32, 2, 3
+import torch_jax_refs as refs
+
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
+
+W_PX, H_PX, SPP, BOUNCES = refs.FIELD_W, refs.FIELD_H, refs.FIELD_SPP, refs.FIELD_BOUNCES
 N = W_PX * H_PX
 # at most this share of sample-rays may take another path than the JAX MXU
 # sweep, each one where the JAX exact sweep sides with the port
 MAX_DEPARTED = 0.01
 
 
-def _jax_arrays(s) -> dict:
-    d = {f.name: np.asarray(getattr(s, f.name)) for f in dataclasses.fields(s) if f.name not in ("materials", "bvh")}
-    d["materials"] = {f.name: np.asarray(getattr(s.materials, f.name)) for f in dataclasses.fields(s.materials)}
-    return d
-
-
 def jax_field_inputs():
-    """(JAX scene, its camera vector, its MXU leaf pack (a, mat, tab, leaf,
-    c, leaf_size), planes, px, py) of the configuration."""
-    jscene = jscenes.build_tri_field(520, 3, glass=True)
-    jscene = dataclasses.replace(jscene, background_spd=srgb_to_illuminance_spectrum(jnp.asarray([0.8, 0.8, 0.8])))
-    jcv = jax_camera_vector(jscenes.scene_camera(CORNELL, W_PX, H_PX))
-    planes = np.random.default_rng(5).uniform(size=(SPP, n_uniforms(BOUNCES), N)).astype(np.float32)
-    ys, xs = np.meshgrid(np.arange(H_PX), np.arange(W_PX), indexing="ij")
-    px, py = xs.ravel().astype(np.float32), ys.ravel().astype(np.float32)
-    return jscene, jcv, jax_pack_scene_auto(jscene, jcv), planes, px, py
+    """(JAX scene, the inputs of the stored field cases: its arrays, its
+    JAX camera vector, planes of seed 5, px, py) of the configuration."""
+    jscene = refs.field_scene()
+    return jscene, refs.field_inputs(jscene)
 
 
 def port_field(jscene, planes, px, py):
     """The port's scene (the JAX arrays), the arguments of its renders and
     its leaf pack."""
-    scene = scene_from_numpy(_jax_arrays(jscene), "cpu")
+    scene = scene_from_numpy(refs.jax_arrays(jscene), "cpu")
     cam = camera_vector(scene_camera(CORNELL, W_PX, H_PX, "cpu"))
     tri, mat, tab, leaf = pack_scene_auto(scene, cam)
     args = (cam, 0, tri, mat, tab, torch.from_numpy(px), torch.from_numpy(py), SPP, BOUNCES, W_PX, torch.from_numpy(planes))
@@ -94,16 +81,13 @@ def port_field(jscene, planes, px, py):
 @pytest.fixture(scope="module")
 def field():
     """Both packages' leaf megakernel renders of the field on the same
-    planes, and the port's sorted render."""
-    jscene, jcv, (a, jmat, jtab, jleaf, c, leaf_size), planes, px, py = jax_field_inputs()
-    jax_mega = render_rays_pallas_residuals(
-        jcv, jnp.int32(0), a, jmat, jtab, jnp.asarray(px), jnp.asarray(py), SPP, BOUNCES, 1024, True,
-        jnp.asarray(planes), leaf_pack=jleaf, leaf_size=leaf_size, c_pack=c,
-    )
-    scene, args, leaf = port_field(jscene, planes, px, py)
+    planes (the JAX one stored), and the port's sorted render."""
+    jscene, x = jax_field_inputs()
+    ref = refs.outputs("field_mega", x)
+    jm = [ref[k] for k in ("xyz", "hero", "n_valid", "power", "matres")]
+    scene, args, leaf = port_field(jscene, x["planes"], x["px"], x["py"])
     mega = render_rays_residuals(*args, leaf_pack=leaf)
     sorted_ = render_rays_wavefront(*args[:5], leaf, *args[5:], save_residuals=True)
-    jm = [np.asarray(x) for x in jax_mega]
     return dict(jscene=jscene, args=args, leaf=leaf, mega=mega, sorted=sorted_, jax_mega=jm, departed=departed(mega, jm))
 
 

@@ -2,11 +2,12 @@
 package's, on the CPU.
 
 The configuration of tests/test_torch_wavefront.py (the sky-lit glass field
-520/3, 64x32, 2 spp, 3 bounces, numpy planes). The JAX side runs once per
+520/3, 64x32, 2 spp, 3 bounces, numpy planes). The JAX side ran once per
 module, in interpret mode: its sorted scheduler (render_rays_wavefront,
 save_residuals=True) and one replay (render_grads_pallas) of those
 residuals for the frame's bottom half, which holds the boxes (the replay
-takes 1024-ray tiles; each interpret call costs ~10-20 s here).
+takes 1024-ray tiles). Their outputs are stored in tests/torch_jax_refs.npz
+(cases field_sorted and field_replay) for these inputs.
 
 - The port's plain sorted scheduler against the JAX one, at the
   tolerances of tests/test_torch_wavefront.py, off the sample-rays where
@@ -27,14 +28,10 @@ from __future__ import annotations
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spectral_tpu.diff.fast import _sellmeier_grads_from_replay as jax_sell_grads
-from spectral_tpu.ops.pallas.grad_kernel import render_grads_pallas
-from spectral_tpu.ops.pallas.wavefront_kernel import render_rays_wavefront as jax_render_rays_wavefront
 from spectral_tpu_torch.diff import render_chunk_diff_fused
 from spectral_tpu_torch.models.scenes import CORNELL, FIELD_GLASS_MAT, scene_camera
 from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
@@ -50,35 +47,31 @@ from test_torch_wavefront import (
     port_field,
 )
 
+import torch_jax_refs as refs
+
+# one torch thread a process: the CPU test run's workers share the cores
+torch.set_num_threads(1)
+
 # the pixels the gradient comparison replays: the frame's bottom half
 REPLAYED = slice(N // 2, N)
 
 
 @pytest.fixture(scope="module")
 def field():
-    jscene, jcv, (a, jmat, jtab, jleaf, c, _), planes, px, py = jax_field_inputs()
-    jax_sorted = [
-        np.asarray(x)
-        for x in jax_render_rays_wavefront(
-            jcv, a, jmat, jtab, jnp.asarray(px), jnp.asarray(py), jnp.asarray(planes), SPP, BOUNCES,
-            jleaf, c, 1024, True, save_residuals=True,
-        )
-    ]
-    scene, args, leaf = port_field(jscene, planes, px, py)
+    jscene, x = jax_field_inputs()
+    ref = refs.outputs("field_sorted", x)
+    jax_sorted = [ref[k] for k in ("xyz", "hero", "n_valid", "power", "matres")]
+    planes = x["planes"]
+    scene, args, leaf = port_field(jscene, planes, x["px"], x["py"])
     port = render_rays_wavefront(*args[:5], leaf, *args[5:], save_residuals=True)
     departed_rays = departed(port, jax_sorted)
     cot = np.random.default_rng(99).normal(size=(N, 3)).astype(np.float32)
     cot[departed_rays.any(axis=0)] = 0.0
     cot[: REPLAYED.start] = 0.0
-    hero, nv, pw, mres = jax_sorted[1:]
-    jgrads = render_grads_pallas(
-        jmat, jtab, jnp.asarray(cot[REPLAYED]), hero[:, REPLAYED], nv[:, REPLAYED], pw[:, :, REPLAYED],
-        mres[:, :, REPLAYED], SPP, BOUNCES, 1024, True, want_bg_grads=True, want_sellmeier=True,
-    )
-    jd_b, jd_c = jax_sell_grads(jscene.materials, FIELD_GLASS_MAT, hero[:, REPLAYED], jgrads[3], jgrads[4])
+    jgrads = refs.outputs("field_replay", refs.field_replay_inputs(x, cot))
     return dict(
         scene=scene, planes=planes, port=port, jax_sorted=jax_sorted, departed=departed_rays, cot=cot,
-        jgrads=[np.asarray(x) for x in jgrads[:3]] + [np.asarray(jd_b), np.asarray(jd_c)],
+        jgrads=[jgrads[k] for k in ("d_coeffs", "d_power", "d_bg", "d_sell_b", "d_sell_c")],
     )
 
 
