@@ -23,7 +23,10 @@ Phases, each fatal on failure:
    card's bound, and held against the plain version there too: the render
    megakernel on the default Cornell frame (600x600, 500 spp, 10 bounces,
    hash draws; bit-equal), the intersect kernel on random rays against
-   CORNELL at that frame's ray count, the residual (bit-equal) and replay
+   CORNELL at that frame's ray count (every output equal; its device time
+   with the host kept ahead by a sleep of the card, the host's µs a call,
+   and its issue bound from the instructions of its loop in the SASS and
+   the SM's top clock), the residual (bit-equal) and replay
    kernels on the training frame (Cornell 1920x1080, 16 spp, 8 bounces);
    the lane efficiency of the render and residual kernels there, live
    ray-steps / (32 x warp sweeps); the replay's time beside its bound and
@@ -57,7 +60,8 @@ Phases, each fatal on failure:
    version and its bound (counted from the run's boxes entered, and for
    comparison under the flat sweep over the same pack), with the slab
    tests a live ray-step at each level, and held bit-equal to the plain
-   version there;
+   version there; the integrate step (the integrate launch with the spp
+   sum that follows it), forward and residual, beside its bytes bound;
 10. the field render as a user runs it: RenderManager with one chunk the
    size of the frame, through render_chunk into the sorted scheduler; the
    same frame through the leaf megakernel (sched="mega"), equal; then the
@@ -83,17 +87,21 @@ behind ops/cuda/render_kernel.py::LEAF_SIZE) and prints one JSON line.
 
 ``python3 chip_smoke.py --ab BASE [OTHER ...]`` times the render kernels
 (B2 at the default frame, B3 at the training frame, B5 and the sorted
-kernels at the 10k field frame, the sorted kernels at the 200k field
-frame) and the replay (B4, on B3's residuals of the training frame, with
-and without the background knots, and on B5's residuals of the 10k field
-frame) of other checkouts of the port against this one's, one process
-each, in the order BASE, this, OTHER..., this, BASE: a checkout is any
-directory holding a ``spectral_tpu_torch`` package, such as an unpacked
-parent commit (``git archive``) or a copy with one compiled choice
-changed. Every render output must be bit-equal to this checkout's
-(digests of the renders and residuals), and every replay output within
-REPLAY_REL of its column's largest value (the replay sums over rays in an
-order its launch shape sets). ``--time ROOT`` is one such process.
+kernels at the 10k field frame, the sorted kernels and the integrate step
+at the 200k field frame), the replay (B4, on B3's residuals of the
+training frame, with and without the background knots, and on B5's
+residuals of the 10k field frame) and the dense intersect (device time,
+host µs a call, back-to-back events, issue bound) of other checkouts of
+the port against this one's, one process each, in the order BASE, this,
+OTHER..., this, BASE: a checkout is any directory holding a
+``spectral_tpu_torch`` package, such as an unpacked parent commit (``git
+archive``) or a copy with one compiled choice changed
+(scripts/kernel_variants.py). Every render, integrate-step and intersect
+output must be bit-equal to this checkout's (digests), and every replay
+output within REPLAY_REL of its column's largest value (the replay sums
+over rays in an order its launch shape sets); a checkout holding a
+TIMING_ONLY file (a build with part of a kernel compiled out) is timed and
+not held to them. ``--time ROOT`` is one such process.
 """
 
 from __future__ import annotations
@@ -141,8 +149,16 @@ SLAB_FLOPS_PER_LEAF = 25
 N_TABLES_FLOATS = 5 * 95
 CURVE_FLOPS = 100
 XYZ_FLOPS = 150
-# the ray state (ops/cuda/wavefront_kernel.py): 17 floats a sample-ray
+# the ray state (ops/cuda/wavefront_kernel.py): 17 floats a sample-ray;
+# the integrate step reads 10 of its rows and the original index a
+# sample-ray, writes 12 bytes a pixel, and in the residual form 36 bytes a
+# sample-ray more (hero, n_valid, 7 powers)
 STATE_BYTES = 4 * 17
+INTEGRATE_READ_BYTES = 4 * (10 + 1)
+INTEGRATE_RESIDUAL_BYTES = 4 * 9
+# the device sleep that keeps the host ahead of timed launches: ~20 ms at
+# the H100's 1.98 GHz boost clock
+SLEEP_CYCLES = 40_000_000
 # the field configurations (bench.py:29-98, 228-287)
 FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES = 512, 256, 4, 6
 FIELD_TRIS, BIG_FIELD_TRIS = 10008, 200064
@@ -181,6 +197,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host µs) a call of fn(), after one warm-up. The reps
+    calls are queued behind a sleep of the card, so that the host is ahead
+    and the events around the calls time the device alone; the host's
+    clock over the same loop gives its µs a call. Raises if the sleep ended
+    before the host had queued the calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    ahead = not start.query()
+    end.record()
+    torch.cuda.synchronize()
+    if not ahead:
+        raise SystemExit(f"device_ms: the host took {host_s} s for {reps} calls, longer than the card's sleep")
+    return start.elapsed_time(end) / reps, 1e6 * host_s / reps
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -204,6 +243,58 @@ def sass_loads(lib, op: str, name: str) -> dict:
             key = "<" + ",".join(re.findall(r"Lb(\d)", form.group(1))) + ">"
             loads[key] = {k: kinds.count(k) for k in sorted(set(kinds))}
     return loads
+
+
+def intersect_rays(rng, n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """n random rays (o, d [n, 3]) in and around the Cornell box."""
+    o = rng.uniform([20, 20, -400], [535, 535, 535], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def sass_loop(lib, name: str, marker: str = "MUFU.RCP") -> tuple[int, int]:
+    """(instructions, ``marker`` instructions) of the innermost loop of the
+    kernel ``name`` in a built library (``cuobjdump -sass``) that holds the
+    most ``marker`` instructions: a loop is the range from a backward
+    branch's target to the branch. Each triangle test has one IEEE divide,
+    whose fast path holds one MUFU.RCP, so the second count is the tests an
+    iteration."""
+    from spectral_tpu_torch.ops.cuda.build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    best = None
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        if name not in fn:
+            continue
+        ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        for addr, op in ins:
+            jump = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if not jump or int(jump.group(1), 16) >= addr:
+                continue
+            loop = [o for a, o in ins if int(jump.group(1), 16) <= a <= addr]
+            key = (sum(marker in o for o in loop), -len(loop))
+            if best is None or key > best[0]:
+                best = (key, len(loop))
+    if best is None or best[0][0] == 0:
+        raise SystemExit(f"no loop with {marker} in {name} of {lib}")
+    return best[1], best[0][0]
+
+
+def intersect_issue_bound(tests: int) -> dict:
+    """The least time the card could issue the dense intersect's triangle
+    tests: the instructions of its loop a test (sass_loop) x tests over
+    (132 SMs x 128 lanes x the SM's top clock, nvidia-smi)."""
+    from spectral_tpu_torch.ops.cuda import build
+
+    n_ins, per_iter = sass_loop(build.INTERSECT.library(), "intersect_kernel")
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    per_test = n_ins / per_iter
+    return {"ms": 1e3 * tests * per_test / (132 * 128 * mhz * 1e6), "per_test": per_test,
+            "loop_instructions": n_ins, "tests_per_iteration": per_iter, "mhz": mhz}
 
 
 def warp_buffer(n: int, dev):
@@ -465,16 +556,49 @@ def check_leaves(name: str, args, leaf) -> dict:
                 between=between, counts=counts, mega_plain_ms=mega_plain_ms, sorted_plain_ms=sorted_plain_ms)
 
 
-def timed_sorted(args, leaf, plain: bool, reps: int = 1):
+def integrate_step(integrate, tab, state, orig, n: int, spp: int, res=(), launched=None):
+    """The integrate step of ops/cuda/wavefront_kernel.py::_wavefront on a
+    final state: XYZ [N, 3] summed over the samples in ascending order, and
+    with ``res`` = (hero, n_valid, power) the residuals. A checkout whose
+    integrate writes the XYZ of each sample-ray gets the sum from PyTorch
+    adds, as its _wavefront does; ``launched``, an event, is recorded just
+    after the integrate launch."""
+    import inspect
+
+    dev = state.device
+    if "pixel_xyz" in inspect.signature(integrate).parameters:
+        xyz = torch.empty((n, 3), device=dev)
+        integrate(tab, state, orig, n, spp, xyz, *res)
+        if launched is not None:
+            launched.record()
+        return xyz
+    xyz_rays = torch.empty((spp * n, 3), device=dev)
+    integrate(tab, state, orig, n, spp, xyz_rays, *res)
+    if launched is not None:
+        launched.record()
+    per_sample = xyz_rays.reshape(spp, n, 3)
+    xyz = torch.zeros((n, 3), device=dev)
+    for s in range(spp):
+        xyz = xyz + per_sample[s]
+    return xyz
+
+
+def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> dict:
     """One sorted-scheduler render through the kernels (or their plain
     versions), the glue of ops/cuda/wavefront_kernel.py repeated here so
     that each launch is timed with CUDA events; the best of ``reps``
-    renders after a warm-up. Returns (ms of the camera launch, ms of the
-    bounce launches together, ms of the integrate launch, ms of the sort
-    and gather glue, live ray-steps of bounces >= 1, boxes entered by the
-    camera launch and by the bounce launches (dicts: leaves, groups,
-    super-groups), xyz per sample-ray). A checkout from before the group
-    tables counts leaves only."""
+    renders after a warm-up. Returns the ms of the camera launch
+    (``cam_ms``), of the bounce launches together (``bounce_ms``), of the
+    sort and gather glue (``glue_ms``), of the integrate launch
+    (``int_ms``) and of the integrate step, the launch with the spp sum
+    that follows it (``step_ms``; ``step_res_ms`` for the residual form,
+    run again on the same final state); the live ray-steps of bounces >= 1
+    (``live``), the boxes entered by the camera launch and by the bounce
+    launches (``b_cam``, ``b_bounce``: dicts of leaves, groups,
+    super-groups), and the outputs of the two integrate steps (``out``:
+    xyz [N, 3], hero, n_valid, power); with ``check``, the two steps' xyz
+    must be equal. A checkout from before the group tables counts leaves
+    only."""
     import inspect
 
     from spectral_tpu_torch.ops.cuda import render_kernel as rk
@@ -492,7 +616,7 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1):
     for rep in range(reps + 1):
         steps = torch.zeros((spp, n), dtype=torch.int32, device=dev)
         boxes = {k: torch.zeros_like(steps) for k in levels}
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4 * bounces + 2)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * bounces + 6)]
         state = torch.empty((wk.STATE_ROWS, nrays), device=dev)
         ev[0].record()
         camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, **boxes, **sweep)
@@ -511,18 +635,30 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1):
                    **sweep)
             ev[k + 2].record()
             k += 3
-        xyz = torch.empty((nrays, 3), device=dev)
+        res = (torch.empty((spp, n), device=dev), torch.empty((spp, n), device=dev),
+               torch.empty((spp, 7, n), device=dev))
         ev[k].record()
-        integrate(tab, state, orig, n, spp, xyz)
-        ev[k + 1].record()
+        xyz = integrate_step(integrate, tab, state, orig, n, spp, launched=ev[k + 1])
+        ev[k + 2].record()
+        xyz_res = integrate_step(integrate, tab, state, orig, n, spp, res)
+        ev[k + 3].record()
         torch.cuda.synchronize()
-        t_cam = ev[0].elapsed_time(ev[1])
-        t_glue = sum(ev[2 + 3 * i].elapsed_time(ev[3 + 3 * i]) for i in range(bounces - 1))
-        t_bounce = sum(ev[3 + 3 * i].elapsed_time(ev[4 + 3 * i]) for i in range(bounces - 1))
-        t_int = ev[k].elapsed_time(ev[k + 1])
-        b_all = {k: int(v.to(torch.int64).sum()) - b_cam[k] for k, v in boxes.items()}
-        out = (t_cam, t_bounce, t_int, t_glue, int(steps.sum()) - nrays, b_cam, b_all, xyz)
-        if rep > 0 and (best is None or sum(out[:3]) < sum(best[:3])):
+        out = dict(
+            cam_ms=ev[0].elapsed_time(ev[1]),
+            glue_ms=sum(ev[2 + 3 * i].elapsed_time(ev[3 + 3 * i]) for i in range(bounces - 1)),
+            bounce_ms=sum(ev[3 + 3 * i].elapsed_time(ev[4 + 3 * i]) for i in range(bounces - 1)),
+            int_ms=ev[k].elapsed_time(ev[k + 1]),
+            step_ms=ev[k].elapsed_time(ev[k + 2]),
+            step_res_ms=ev[k + 2].elapsed_time(ev[k + 3]),
+            live=int(steps.sum()) - nrays,
+            b_cam=b_cam,
+            b_bounce={k: int(v.to(torch.int64).sum()) - b_cam[k] for k, v in boxes.items()},
+            out=(xyz, *res),
+        )
+        if check and not torch.equal(xyz, xyz_res):
+            raise SystemExit("integrate step: the residual form's xyz differs from the forward's")
+        key = ("cam_ms", "bounce_ms", "step_ms")
+        if rep > 0 and (best is None or sum(out[q] for q in key) < sum(best[q] for q in key)):
             best = out
     return best
 
@@ -561,40 +697,55 @@ def leaf_work(args, leaf) -> tuple[float, float, int]:
     return scene_bytes, 4 * 5 * px.numel(), tri.shape[0] // leaf.shape[0]
 
 
+def integrate_bound(n: int, spp: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, bound ms of the residual form) of the
+    integrate step on N pixels: each sample-ray's state rows and original
+    index read once, each pixel's XYZ written once (and each sample-ray's
+    residuals); the tables; the XYZ arithmetic."""
+    samples = n * spp
+    read = 4 * N_TABLES_FLOATS + samples * INTEGRATE_READ_BYTES
+    fwd, by = bound_ms(samples * XYZ_FLOPS, read + 12 * n)
+    res, _ = bound_ms(samples * XYZ_FLOPS, read + 12 * n + samples * INTEGRATE_RESIDUAL_BYTES)
+    return fwd, by, res
+
+
 def sorted_report(name: str, args, leaf, plain: bool) -> dict:
     """The sorted kernels on one frame, timed per launch (timed_sorted, the
     best of 3) and, with ``plain``, held bit-equal to their plain versions
-    in xyz and every count; the bounds of the camera and bounce launches
-    under the group hierarchy and, for comparison, under the flat sweep
-    over the same pack; slab tests per live ray-step by level."""
+    in xyz, the integrate step's residuals and every count; the bounds of
+    the camera and bounce launches under the group hierarchy and, for
+    comparison, under the flat sweep over the same pack, and of the
+    integrate step; slab tests per live ray-step by level."""
     scene_bytes, _, k_size = leaf_work(args, leaf)
     n_rays, spp, bounces = args[5].numel(), args[7], args[8]
     samples = n_rays * spp
-    t = timed_sorted(args, leaf, False, reps=3)
-    r = dict(cam_ms=t[0], bounce_ms=t[1], int_ms=t[2], glue_ms=t[3], live=t[4], b_cam=t[5], b_bounce=t[6])
+    r = timed_sorted(args, leaf, False, reps=3)
     if plain:
         p = timed_sorted(args, leaf, True)
-        if p[4:7] != t[4:7] or not torch.equal(p[7], t[7]):
+        same = all(p[k] == r[k] for k in ("live", "b_cam", "b_bounce"))
+        if not same or not all(torch.equal(a, b) for a, b in zip(p["out"], r["out"])):
             raise SystemExit(f"sorted scheduler, {name}: the kernels differ from their plain versions")
-        r.update(p_cam=p[0], p_bounce=p[1], p_int=p[2])
-    cam_sw, cam_flat, r["cam_tests"] = sweep_work(samples, t[5], leaf, k_size)
-    b_sw, b_flat, r["b_tests"] = sweep_work(t[4], t[6], leaf, k_size)
+        r.update(p_cam=p["cam_ms"], p_bounce=p["bounce_ms"], p_int=p["step_ms"])
+    del r["out"]
+    cam_sw, cam_flat, r["cam_tests"] = sweep_work(samples, r["b_cam"], leaf, k_size)
+    b_sw, b_flat, r["b_tests"] = sweep_work(r["live"], r["b_bounce"], leaf, k_size)
     cam_bytes = scene_bytes + 8 * n_rays + STATE_BYTES * samples
-    b_bytes = (bounces - 1) * (scene_bytes + 8 * samples) + 2 * STATE_BYTES * t[4]
+    b_bytes = (bounces - 1) * (scene_bytes + 8 * samples) + 2 * STATE_BYTES * r["live"]
     cam_base = samples * (SAMPLE_FLOPS + SHADE_FLOPS_PER_STEP)
-    b_base = t[4] * (SHADE_FLOPS_PER_STEP + CURVE_FLOPS)
+    b_base = r["live"] * (SHADE_FLOPS_PER_STEP + CURVE_FLOPS)
     r["cam_bound"], r["cam_by"] = bound_ms(cam_base + cam_sw, cam_bytes)
     r["cam_flat_bound"], _ = bound_ms(cam_base + cam_flat, cam_bytes)
     r["b_bound"], r["b_by"] = bound_ms(b_base + b_sw, b_bytes)
     r["b_flat_bound"], _ = bound_ms(b_base + b_flat, b_bytes)
-    r["int_bound"], r["int_by"] = bound_ms(samples * XYZ_FLOPS, 4 * N_TABLES_FLOATS + samples * (40 + 4 + 12))
+    r["int_bound"], r["int_by"], r["int_res_bound"] = integrate_bound(n_rays, spp)
     plain_ms = f" (plain {r['p_cam']} / {r['p_bounce']} / {r['p_int']})" if plain else ""
-    log(f"  sorted, {name}: camera {r['cam_ms']} ms, {bounces - 1} bounces {r['bounce_ms']} ms, integrate "
-        f"{r['int_ms']} ms{plain_ms}, sort and gather {r['glue_ms']} ms; bounds {r['cam_bound']} ({r['cam_by']}; flat "
-        f"sweep {r['cam_flat_bound']}), {r['b_bound']} ({r['b_by']}; flat sweep {r['b_flat_bound']}), "
-        f"{r['int_bound']} ({r['int_by']}) ms; {r['live']} live ray-steps of bounces >= 1; boxes entered: camera "
-        f"{r['b_cam']}, bounces {r['b_bounce']}; slab tests a live ray-step: camera {r['cam_tests']}, bounces "
-        f"{r['b_tests']}")
+    log(f"  sorted, {name}: camera {r['cam_ms']} ms, {bounces - 1} bounces {r['bounce_ms']} ms, integrate step "
+        f"{r['step_ms']} ms (its launch {r['int_ms']} ms; residual form {r['step_res_ms']} ms){plain_ms}, sort and "
+        f"gather {r['glue_ms']} ms; bounds {r['cam_bound']} ({r['cam_by']}; flat sweep {r['cam_flat_bound']}), "
+        f"{r['b_bound']} ({r['b_by']}; flat sweep {r['b_flat_bound']}), integrate step {r['int_bound']} "
+        f"({r['int_by']}; residual form {r['int_res_bound']}) ms; {r['live']} live ray-steps of bounces >= 1; boxes "
+        f"entered: camera {r['b_cam']}, bounces {r['b_bounce']}; slab tests a live ray-step: camera "
+        f"{r['cam_tests']}, bounces {r['b_tests']}")
     return r
 
 
@@ -619,12 +770,58 @@ def leaf_size_sweep(dev) -> int:
     return 0
 
 
+def end_to_end(dev, field, big_field) -> dict:
+    """Wall ms of the paths a user runs, each the least of 3 after a
+    warm-up, the host clock around work that ends in a synchronize: the
+    default render through RenderManager (Cornell 600x600, 500 spp, 10
+    bounces), the 10k and 200k field frames through RenderManager, and one
+    train_step_fused on the Cornell training frame and on the 10k field
+    frame."""
+    from spectral_tpu_torch.config import RenderParams
+    from spectral_tpu_torch.models.scenes import CORNELL, build_scene, scene_camera
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_chunk
+    from spectral_tpu_torch.parallel import train_step_fused, trainable_params
+    from spectral_tpu_torch.runtime.render_manager import RenderManager
+
+    def best(fn) -> float:
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return min(times)
+
+    cornell = build_scene(CORNELL, dev)
+    frame = RenderParams(xres=FIELD_W, aspect_ratio=FIELD_W / FIELD_H, nsamples=FIELD_SPP,
+                         bounce_limit=FIELD_BOUNCES, show=False)
+    out = {"e2e_default_render": best(
+        lambda: RenderManager(cornell, scene_camera(CORNELL, 600, 600, dev), RenderParams(show=False)).render())}
+    for tag, scene in (("e2e_field_frame", field), ("e2e_field_frame_200k", big_field)):
+        out[tag] = best(lambda: RenderManager(scene, scene_camera(CORNELL, FIELD_W, FIELD_H, dev), frame).render())
+    for tag, scene, (w, h, spp, bounces, seed, lr) in (
+        ("e2e_cornell_train_step", cornell, (TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_SEED, TRAIN_LR)),
+        ("e2e_field_train_step", field, (FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES, FIELD_SEED, FIELD_LR)),
+    ):
+        cam = scene_camera(CORNELL, w, h, dev)
+        with torch.no_grad():
+            target = render_chunk(scene, cam, seed, 0, 0, w, h, spp, bounces) / spp
+        params = {k: v.clone() for k, v in trainable_params(scene).items() if k in ("coeffs", "emission_power")}
+        out[tag] = best(lambda: train_step_fused(params, scene, cam, target, seed, spp, bounces, lr=lr))
+        del target
+    return out
+
+
 def time_kernels(root: str) -> int:
     """``--time ROOT``: build the port found at ROOT and time its render
-    kernels at their paths' shapes, warmed, with CUDA events; print one JSON
-    line with each kernel's ms, a digest of its outputs, the lane
-    efficiency (where the port reports warp sweeps) and ptxas's lines for
-    the render kernels."""
+    kernels at their paths' shapes, the replay, the sorted scheduler's
+    integrate step and the dense intersect, warmed, with CUDA events, and
+    the end-to-end paths (end_to_end); print one JSON line with each ms
+    (the intersect's also as host µs a call), a digest of the kernels'
+    outputs, the lane efficiency (where the port reports warp sweeps) and
+    ptxas's lines for the render kernels."""
     import hashlib
     import inspect
 
@@ -635,6 +832,7 @@ def time_kernels(root: str) -> int:
     from spectral_tpu_torch.ops.cuda import build
     from spectral_tpu_torch.ops.cuda import render_kernel as rk
     from spectral_tpu_torch.ops.cuda.grad_kernel import render_grads as rk_grads
+    from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
     from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
     from spectral_tpu_torch.runtime.render_manager import chunk_seed
 
@@ -654,7 +852,8 @@ def time_kernels(root: str) -> int:
 
     a2 = frame(600, 600, 500, 10, chunk_seed(0, 0, 600))
     a3 = frame(TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_SEED)
-    fa, leaf = field_args(build_tri_field(FIELD_TRIS, 0, device=dev), FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
+    field = build_tri_field(FIELD_TRIS, 0, device=dev)
+    fa, leaf = field_args(field, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
                           None, chunk_seed(0, 0, FIELD_W))
     runs = {
         "render": (a2, {}, rk.render_rays, 2),
@@ -703,18 +902,32 @@ def time_kernels(root: str) -> int:
                 shapes["grad"] = shape_fn(res[0].shape[1], r_mat.shape[0], r_b, True, False, dev)
         del res, g, got
     torch.cuda.empty_cache()
+    # the dense intersect on random rays at the default frame's ray count:
+    # device time with the host kept ahead, the host's µs a call, and the
+    # events around back-to-back calls as earlier runs timed it
+    o, d = intersect_rays(np.random.default_rng(11), 600 * 600, dev)
+    tri16 = pack_tris(build_scene(CORNELL, dev))
+    digest["intersect"] = sha(intersect(o, d, tri16))
+    ms["intersect"], ms["intersect_host_us"] = device_ms(lambda: intersect(o, d, tri16), 20)
+    ms["intersect_back_to_back"] = cuda_ms(lambda: intersect(o, d, tri16), 20)
+    issue = intersect_issue_bound(o.shape[0] * tri16.shape[0])
     boxes = {}
-    big = field_args(build_tri_field(BIG_FIELD_TRIS, 0, device=dev), FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
+    big_field = build_tri_field(BIG_FIELD_TRIS, 0, device=dev)
+    big = field_args(big_field, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
                      None, chunk_seed(0, 0, FIELD_W))
     for tag, (args, lf) in (("", (fa, leaf)), ("_200k", big)):
         wf = (*args[:5], lf, *args[5:])
         digest["sorted" + tag] = sha(render_rays_wavefront(*wf, save_residuals=True))
-        cam_ms, bounce_ms, int_ms, glue_ms, live, b_cam, b_bounce, _ = timed_sorted(args, lf, False, reps=3)
-        ms.update({"wavefront_camera" + tag: cam_ms, "wavefront_bounce" + tag: bounce_ms,
-                   "wavefront_integrate" + tag: int_ms, "sort_and_gather" + tag: glue_ms})
-        boxes["sorted" + tag] = {"bounce_live_steps": live, "camera": b_cam, "bounces": b_bounce}
+        t = timed_sorted(args, lf, False, reps=3, check=not os.path.exists(os.path.join(root, "TIMING_ONLY")))
+        digest["integrate_step" + tag] = sha(t["out"])
+        ms.update({"wavefront_camera" + tag: t["cam_ms"], "wavefront_bounce" + tag: t["bounce_ms"],
+                   "wavefront_integrate" + tag: t["int_ms"], "integrate_step" + tag: t["step_ms"],
+                   "integrate_step_residuals" + tag: t["step_res_ms"], "sort_and_gather" + tag: t["glue_ms"]})
+        boxes["sorted" + tag] = {"bounce_live_steps": t["live"], "camera": t["b_cam"], "bounces": t["b_bounce"]}
+    ms.update(end_to_end(dev, field, big_field))
     print(json.dumps({"root": os.path.abspath(root), "ms": ms, "digest": digest, "lane_efficiency": lanes,
-                      "boxes": boxes, "ptxas": ptxas, "grads": grads, "replay_shape": shapes}), flush=True)
+                      "boxes": boxes, "ptxas": ptxas, "grads": grads, "replay_shape": shapes,
+                      "intersect_issue": issue}), flush=True)
     return 0
 
 
@@ -735,16 +948,19 @@ def ab_runs(roots: list[str]) -> int:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"--time {root} failed")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        log(json.dumps({k: runs[-1].get(k) for k in ("root", "ms", "lane_efficiency", "boxes", "replay_shape")}))
+        log(json.dumps({k: runs[-1].get(k) for k in ("root", "ms", "lane_efficiency", "boxes", "replay_shape",
+                                                      "intersect_issue")}))
     ref, ref_grads = runs[1]["digest"], runs[1]["grads"]
-    for r in runs:
+    for root, r in zip(order, runs):
         r["bit_equal"] = {k: r["digest"].get(k) == v for k, v in ref.items()}
         grads = r.pop("grads")
         r["replay_rel"] = {k: replay_rel(grads[k], v) for k, v in ref_grads.items()}
+        r["timing_only"] = os.path.exists(os.path.join(root, "TIMING_ONLY"))
     print(json.dumps({"ab": runs, "device": smi}), flush=True)
-    if not all(all(r["bit_equal"].values()) for r in runs):
+    held = [r for r in runs if not r["timing_only"]]
+    if not all(all(r["bit_equal"].values()) for r in held):
         raise SystemExit("--ab: a checkout's outputs differ from this one's")
-    if not all(v <= REPLAY_REL for r in runs for v in r["replay_rel"].values()):
+    if not all(v <= REPLAY_REL for r in held for v in r["replay_rel"].values()):
         raise SystemExit("--ab: a checkout's replay differs from this one's beyond REPLAY_REL")
     return 0
 
@@ -889,28 +1105,28 @@ def main() -> int:
     )
 
     tri16 = pack_tris(cornell)
-    o = torch.from_numpy(rng.uniform([20, 20, -400], [535, 535, 535], (n_rays, 3)).astype(np.float32)).to(dev)
-    d = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
+    o, d = intersect_rays(rng, n_rays, dev)
     log("intersect kernel vs plain, CORNELL, %d random rays:" % n_rays)
     got = intersect(o, d, tri16)
     ref = nearest_hit(o, d, tri16)
     torch.cuda.synchronize()
-    for a, b, what in zip(got[1:], ref[1:], ("idx", "hit", "front")):
+    for a, b, what in zip(got, ref, ("t", "idx", "hit", "front")):
         if not torch.equal(a, b):
             raise SystemExit(f"intersect: {what} differs from the plain version")
     hit = ref[2]
-    t_err = (got[0] - ref[0]).abs()[hit]
-    if not bool((t_err <= 1e-6 * ref[0].abs()[hit]).all()):
-        raise SystemExit("intersect: t differs from the plain version beyond rtol 1e-6")
-    isect_err, isect_mean = float(t_err.max()), float(t_err.mean())
-    i_ms = cuda_ms(lambda: intersect(o, d, tri16), 20)
+    isect_err = float((got[0] - ref[0]).abs().max())
+    i_ms, i_host_us = device_ms(lambda: intersect(o, d, tri16), 20)
+    i_b2b_ms = cuda_ms(lambda: intersect(o, d, tri16), 20)
     i_plain_ms = cuda_ms(lambda: nearest_hit(o, d, tri16), 3)
     i_flops = n_rays * tri16.shape[0] * SWEEP_FLOPS_PER_TRI
     i_bytes = 4 * tri16.numel() + n_rays * (24 + 4 + 4 + 1 + 1)
     i_bound, i_by = bound_ms(i_flops, i_bytes)
+    i_issue = intersect_issue_bound(n_rays * tri16.shape[0])
     log(
-        f"  idx/hit/front equal; t max abs {isect_err:.3g}, mean abs {isect_mean:.3g} over {int(hit.sum())} hits; "
-        f"{n_rays} rays x {tri16.shape[0]} tris: {i_ms} ms (plain {i_plain_ms} ms), bound {i_bound} ms ({i_by})"
+        f"  t, idx, hit, front equal ({int(hit.sum())} hits); {n_rays} rays x {tri16.shape[0]} tris: device "
+        f"{i_ms} ms a call (queued behind a sleep), host {i_host_us} us a call, back-to-back events {i_b2b_ms} "
+        f"ms; plain {i_plain_ms} ms; bound {i_bound} ms ({i_by}); issue bound {i_issue['ms']} ms "
+        f"({i_issue['per_test']} instructions a test in the SASS loop, SM clock {i_issue['mhz']} MHz); {smi}"
     )
 
     # the residual and replay kernels at the training shape
@@ -1244,11 +1460,13 @@ def main() -> int:
             "launches": launches["intersect"],
             "on_main_path": False,
             "max_abs_err": isect_err,
-            "mean_abs_err": isect_mean,
             "ms": i_ms,
+            "host_us_per_call": i_host_us,
+            "back_to_back_ms": i_b2b_ms,
             "plain_ms": i_plain_ms,
             "bound_ms": i_bound,
             "bound_by": i_by,
+            "issue_bound": i_issue,
             "library_ms": None,
             "shape": f"{n_rays} rays, {tri16.shape[0]} tris",
         },
@@ -1332,12 +1550,15 @@ def main() -> int:
             "launches_per_train_step": ftrain_launches["wavefront_integrate"] // 3,
             "max_abs_err": sorted_err,
             "mean_abs_err": sorted_mean,
-            "ms": wf["int_ms"],
+            "ms": wf["step_ms"],
+            "residual_form_ms": wf["step_res_ms"],
             "plain_ms": wf["p_int"],
             "bound_ms": wf["int_bound"],
             "bound_by": wf["int_by"],
+            "residual_form_bound_ms": wf["int_res_bound"],
             "library_ms": None,
-            "shape": f"{f_samples} sample-rays",
+            "at_200k": {k: big_wf[k] for k in ("step_ms", "step_res_ms", "int_bound")},
+            "shape": f"the integrate step (the launch and the spp sum): {f_samples} sample-rays, {f_rays} pixels",
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,25 +1,22 @@
 // Dense nearest-hit sweeps shared by the intersect kernel and the render
 // megakernel, and the triangle test the leaf sweep (leaf_sweep.cuh) shares.
 //
-// One thread tests its ray against every triangle of a packed table held in
-// shared memory. All threads of a warp read the same row at the same time,
-// so each read is a shared-memory broadcast. The plane test is the
+// Threads test their rays against every triangle of a table held in shared
+// memory. All threads of a warp read the same row at the same time, so
+// each read is a shared-memory broadcast. The plane test is the
 // reference's tri::hit (primitives/tri.cu:12-25); the interior test is its
 // is_interior_faster (tri.cu:121-128) as three affine functionals >= 0.
 //
-// Two layouts of a triangle's 16 floats (normal n, plane offset, sign-folded
-// edge functionals g_k and c_k, see models/geometry.py):
-// - the packed row (stride STRIDE: n 0:3, offset 3, g 4:13, c 13:16), read
-//   as 16 scalar loads: nearest_hit, the intersect kernel's sweep;
-// - four float4 per triangle, (n, offset) and (g_k, c_k) for k = 0, 1, 2,
-//   restaged from the row by stage_rows: nearest_hit_rows, the render
-//   megakernel's dense sweep. A 17-float row is never 16-byte aligned, so
-//   the row form costs 16 shared-load instructions a triangle; the float4
-//   form costs 4 128-bit broadcasts (LDS.128), and the sweep is bound by
-//   load issue less. The material id (column 16 of the render pack) goes to
-//   a separate int array, read only on a hit.
-// Both forms run tri_hit4, so they take the same operations in the same
-// order.
+// A triangle's 16 floats (normal n, plane offset, sign-folded edge
+// functionals g_k and c_k, see models/geometry.py) arrive as a packed row
+// (n 0:3, offset 3, g 4:13, c 13:16; the render pack adds the material id
+// at column 16) and are restaged as four float4, (n, offset) and (g_k, c_k)
+// for k = 0, 1, 2, by stage_tri_rows: a packed row of 16 or 17 floats is
+// not a whole number of 16-byte rows, so read as it is a triangle would
+// cost 16 shared-load instructions, and as float4 rows it costs 4 128-bit
+// broadcasts (LDS.128). stage_rows also puts the render pack's material ids
+// in a separate int array, read only on a hit. Every sweep runs tri_hit4,
+// so all take the same operations in the same order.
 //
 // Numerics: the sources are compiled with -fmad=false and without fast
 // math, so every operation rounds once, in the written order, and products
@@ -47,7 +44,10 @@ struct NearestHit {
 
 // The plane and interior tests of one triangle, given as (n, offset) and
 // (g_k, c_k): whether the ray meets it at a distance tt >= 0 (tt and
-// nd = n . d out).
+// nd = n . d out). The tests combine with & rather than &&: every test is
+// computed, in straight-line code, instead of a branch around each later
+// one (the branches and their reconvergence points cost more instructions
+// than the tests they skip).
 __device__ __forceinline__ bool tri_hit4(float4 p, float4 g0, float4 g1,
                                          float4 g2, float ox, float oy,
                                          float oz, float dx, float dy,
@@ -55,47 +55,19 @@ __device__ __forceinline__ bool tri_hit4(float4 p, float4 g0, float4 g1,
   nd = dot3(p.x, p.y, p.z, dx, dy, dz);
   const float no = dot3(p.x, p.y, p.z, ox, oy, oz);
   tt = (p.w - no) / nd;
-  bool inside = true;
+  bool inside = (fabsf(nd) >= SPT_DENOM_EPS) & (tt >= 0.0f);
   const float4 g[3] = {g0, g1, g2};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float ao = dot3(g[k].x, g[k].y, g[k].z, ox, oy, oz) + g[k].w;
     const float ad = dot3(g[k].x, g[k].y, g[k].z, dx, dy, dz);
-    inside = inside && (fmaf(tt, ad, ao) >= 0.0f);
+    inside = inside & (fmaf(tt, ad, ao) >= 0.0f);
   }
-  return inside && fabsf(nd) >= SPT_DENOM_EPS && tt >= 0.0f;
+  return inside;
 }
 
-// tri_hit4 of one packed row p.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ p, float ox,
-                                        float oy, float oz, float dx, float dy,
-                                        float dz, float& tt, float& nd) {
-  return tri_hit4(make_float4(p[0], p[1], p[2], p[3]),
-                  make_float4(p[4], p[5], p[6], p[13]),
-                  make_float4(p[7], p[8], p[9], p[14]),
-                  make_float4(p[10], p[11], p[12], p[15]), ox, oy, oz, dx, dy,
-                  dz, tt, nd);
-}
-
-template <int STRIDE>
-__device__ __forceinline__ NearestHit nearest_hit(
-    const float* __restrict__ tri, int n_tris, float ox, float oy, float oz,
-    float dx, float dy, float dz) {
-  NearestHit h{SPT_BIG, 0, false, false};
-  for (int t = 0; t < n_tris; ++t) {
-    float tt, nd;
-    // strict < keeps the lower index on a tie, like the plain argmin
-    if (tri_hit(tri + t * STRIDE, ox, oy, oz, dx, dy, dz, tt, nd) && tt < h.t) {
-      h.t = tt;
-      h.idx = t;
-      h.hit = true;
-      h.front = nd < 0.0f;
-    }
-  }
-  return h;
-}
-
-// nearest_hit over the float4 rows of stage_rows (4 per triangle).
+// The nearest hit of one ray over the float4 rows of stage_tri_rows (4 per
+// triangle).
 __device__ __forceinline__ NearestHit nearest_hit_rows(
     const float4* __restrict__ rows, int n_tris, float ox, float oy, float oz,
     float dx, float dy, float dz) {
@@ -122,13 +94,11 @@ __device__ __forceinline__ void stage(float* __restrict__ dst,
   for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
 }
 
-// Restage n_tris packed rows of width `stride` (>= 17; material id at
-// column 16) as the float4 rows of nearest_hit_rows, and their material ids
-// as ints, all threads of the block together.
-__device__ __forceinline__ void stage_rows(float4* __restrict__ rows,
-                                           int* __restrict__ mat_id,
-                                           const float* __restrict__ src,
-                                           int n_tris, int stride) {
+// Restage n_tris packed rows of width `stride` (>= 16) as the float4 rows
+// of nearest_hit_rows, all threads of the block together.
+__device__ __forceinline__ void stage_tri_rows(float4* __restrict__ rows,
+                                               const float* __restrict__ src,
+                                               int n_tris, int stride) {
   for (int k = threadIdx.x; k < 4 * n_tris; k += blockDim.x) {
     const float* p = src + (k >> 2) * stride;
     const int q = k & 3;
@@ -136,6 +106,15 @@ __device__ __forceinline__ void stage_rows(float4* __restrict__ rows,
                      : make_float4(p[3 * q + 1], p[3 * q + 2], p[3 * q + 3],
                                    p[12 + q]);
   }
+}
+
+// stage_tri_rows of the render pack (stride >= 17, material id at column
+// 16), and its material ids as ints.
+__device__ __forceinline__ void stage_rows(float4* __restrict__ rows,
+                                           int* __restrict__ mat_id,
+                                           const float* __restrict__ src,
+                                           int n_tris, int stride) {
+  stage_tri_rows(rows, src, n_tris, stride);
   for (int t = threadIdx.x; t < n_tris; t += blockDim.x)
     mat_id[t] = (int)src[t * stride + 16];
 }

@@ -1,19 +1,32 @@
-// Dense ray-triangle nearest hit, one thread per ray.
+// Dense ray-triangle nearest hit, kRays rays a thread.
 //
 // Replaces the TPU kernel spectral_tpu/ops/pallas/intersect_kernel.py
-// :52 _intersect_kernel (launched by intersect_pallas :108). Its sweep is
-// the nearest_hit function of hit.cuh, the same one the render megakernel
-// runs per bounce.
+// :52 _intersect_kernel (launched by intersect_pallas :108). Its sweep runs
+// hit.cuh's tri_hit4 over the float4 rows the render megakernel's dense
+// sweep reads, triangle by triangle with a strict <, so t, idx, hit and
+// front are the render sweep's and the plain version's
+// (ops/intersect.py::nearest_hit) bit for bit.
 //
-// Bound on an H100: arithmetic. Each ray-triangle test is ~51 FP32
-// operations (two 3-term dots, a subtract and a divide for the plane, then
-// per edge two dots and one multiply-add) against 24 bytes of ray read and
-// 13 bytes written per ray, so at 42 triangles the work is ~2.1 kflop per
-// 37 bytes, far above the card's ~20 flop/byte balance point.
-// Design: the packed table ([T, 16] floats, <= 48 KB) is staged in shared
-// memory once per block and every read of it is a warp-wide broadcast; the
-// ray lives in registers; no atomics, each thread writes its own outputs.
-// Right and simple first: no tiling of the sweep, no early out.
+// Bound on an H100: instruction issue. Each ray-triangle test is ~51 FP32
+// operations (two 3-term dots, a subtract and an IEEE divide for the
+// plane, then per edge two dots and one multiply-add) against 24 bytes of
+// ray read and 10 bytes written per ray, so at 42 triangles the work is
+// ~2.1 kflop per 34 bytes, far above the card's ~20 flop/byte balance
+// point; and the divide and the compares make a test more instructions
+// than its flops count (chip_smoke.py reads the loop's instructions in the
+// SASS).
+// Design:
+// - the [T, 16] pack is staged once per block as four float4 rows a
+//   triangle (hit.cuh::stage_tri_rows), so a triangle costs four 128-bit
+//   shared-memory broadcasts (LDS.128), shared by the thread's rays;
+// - kRays rays a thread, swept together: their tests of a triangle are
+//   independent, so one ray's divide overlaps the others' arithmetic;
+// - the triangle test in straight-line code (hit.cuh::tri_hit4);
+// - no atomics: each thread writes its own rays' outputs, coalesced.
+// A block of 128 threads takes 256 rays, and the grid covers the rays
+// once: a persistent grid of as many blocks as fit on the card measured
+// slower (its blocks loop unevenly), and this launch asks the driver
+// nothing, so the host's part of a call stays small.
 
 #include <cuda_runtime.h>
 
@@ -23,6 +36,7 @@ namespace {
 
 constexpr int kTriStride = 16;
 constexpr int kBlock = 128;
+constexpr int kRays = 2;
 
 __global__ void __launch_bounds__(kBlock)
     intersect_kernel(const float* __restrict__ tri_pack, int n_tris,
@@ -30,32 +44,66 @@ __global__ void __launch_bounds__(kBlock)
                      int n, float* __restrict__ t_out, int* __restrict__ idx_out,
                      unsigned char* __restrict__ hit_out,
                      unsigned char* __restrict__ front_out) {
-  extern __shared__ float s_tri[];
-  stage(s_tri, tri_pack, n_tris * kTriStride);
+  extern __shared__ float4 s_rows[];
+  stage_tri_rows(s_rows, tri_pack, n_tris, kTriStride);
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const NearestHit h = nearest_hit<kTriStride>(
-      s_tri, n_tris, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-      d[3 * i + 1], d[3 * i + 2]);
-  t_out[i] = h.t;
-  idx_out[i] = h.idx;
-  hit_out[i] = h.hit ? 1 : 0;
-  front_out[i] = h.front ? 1 : 0;
+  // ray k of this thread: first + k * blockDim.x + threadIdx.x; past the
+  // end a lane sweeps the last ray again and stores nothing
+  const int first = blockIdx.x * kRays * blockDim.x + threadIdx.x;
+  float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
+  NearestHit h[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int i = min(first + k * (int)blockDim.x, n - 1);
+    ox[k] = o[3 * i];
+    oy[k] = o[3 * i + 1];
+    oz[k] = o[3 * i + 2];
+    dx[k] = d[3 * i];
+    dy[k] = d[3 * i + 1];
+    dz[k] = d[3 * i + 2];
+    h[k] = NearestHit{SPT_BIG, 0, false, false};
+  }
+  for (int t = 0; t < n_tris; ++t) {
+    const float4* r = s_rows + 4 * t;
+    const float4 p = r[0], g0 = r[1], g1 = r[2], g2 = r[3];
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      float tt, nd;
+      // strict < keeps the lower index on a tie, like the plain argmin
+      if (tri_hit4(p, g0, g1, g2, ox[k], oy[k], oz[k], dx[k], dy[k], dz[k], tt,
+                   nd) &&
+          tt < h[k].t) {
+        h[k].t = tt;
+        h[k].idx = t;
+        h[k].hit = true;
+        h[k].front = nd < 0.0f;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int i = first + k * (int)blockDim.x;
+    if (i < n) {
+      t_out[i] = h[k].t;
+      idx_out[i] = h[k].idx;
+      hit_out[i] = h[k].hit ? 1 : 0;
+      front_out[i] = h[k].front ? 1 : 0;
+    }
+  }
 }
 
 }  // namespace
 
 // o, d: [n, 3] f32; tri_pack: [n_tris, 16] f32; outputs [n]. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
+// `stream` and returns its CUDA error (0 = launched).
 extern "C" int intersect_launch(const float* tri_pack, int n_tris,
                                 const float* o, const float* d, int n,
                                 float* t_out, int* idx_out,
                                 unsigned char* hit_out,
                                 unsigned char* front_out, void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)n_tris * kTriStride;
-  const int grid = (n + kBlock - 1) / kBlock;
+  const size_t smem = sizeof(float4) * 4 * (size_t)n_tris;
+  const int grid = (n + kRays * kBlock - 1) / (kRays * kBlock);
   intersect_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
       tri_pack, n_tris, o, d, n, t_out, idx_out, hit_out, front_out);
   return (int)cudaGetLastError();

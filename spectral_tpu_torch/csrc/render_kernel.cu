@@ -60,7 +60,7 @@
 //    sweep issued 16 scalar loads a triangle. The rows are restaged as four
 //    float4, (n, offset) and (g_k, c_k) (hit.cuh::stage_rows), read as four
 //    128-bit broadcasts; the material ids sit in an int array read on a
-//    hit. The test's operations and their order are tri_hit's.
+//    hit. The test's operations and their order are hit.cuh::tri_hit4's.
 // 3. Latency with few warps: 127 registers x 128 threads left 16 warps an
 //    SM to hide the sweep's divide and the SPD's sqrt and divide. The dense
 //    forms ask for more blocks an SM (__launch_bounds__): the forward form

@@ -1,6 +1,7 @@
 // The sorted per-bounce scheduler's three kernels, one thread per ray
 // (sample-ray r = s * n + p of pixel p, sample s), on a ray state carried
-// through device memory between launches.
+// through device memory between launches, and the integrate step that ends
+// a frame.
 //
 // Replace the TPU kernels of spectral_tpu/ops/pallas/wavefront_kernel.py,
 // launched by render_rays_wavefront :407:
@@ -11,7 +12,9 @@
 //   material residual 0 (:289-296);
 // - integrate_kernel: _integrate_kernel :338 (pallas_call :625): the CIE
 //   XYZ of the final state, nothing once the bounce limit is exhausted
-//   (:348-349).
+//   (:348-349), and with it the un-sort and the ascending spp sum that
+//   follow that kernel in XLA (:639-642): the integrate step, XYZ a pixel
+//   out (integrate_kernel and sum_slots_kernel).
 // Between launches, ops/cuda/wavefront_kernel.py sorts the rays by (dead,
 // direction octant, Morton code of the origin) and gathers the state, so
 // that the lanes of a warp sweep neighbouring rays of one direction octant
@@ -31,11 +34,16 @@
 // excludes none), 10-16 power. The bounce kernel updates it in place: each
 // thread reads and writes its own column only.
 //
-// Bound on an H100: FP32 arithmetic, as the leaf megakernel's (per live
-// ray-step ~340 flops of shading and the sweep's slab and triangle tests,
-// leaf_sweep.cuh); the state adds 2 * 68 bytes per live ray-step (read,
-// written) and the integration reads 40 bytes and writes 12 per ray, far
-// below it. The `steps`, `visits`, `group_visits` and `top_visits` outputs
+// Bound on an H100: FP32 arithmetic for the tracing kernels, as the leaf
+// megakernel's (per live ray-step ~340 flops of shading and the sweep's
+// slab and triangle tests, leaf_sweep.cuh); the state adds 2 * 68 bytes
+// per live ray-step (read, written), far below it. The integrate step is
+// bound by bytes: 44 read a sample-ray (10 state rows and orig) and 12
+// written a pixel, and 36 more written a sample-ray in the residual form.
+// Its design: coalesced state reads in sorted order, the CIE rows paired
+// in shared memory, one 16-byte scattered store a sample-ray into a slot,
+// and the spp sum over the slots, which are still in L2, in a second
+// launch of one thread a pixel (integrate_kernel, sum_slots_kernel). The `steps`, `visits`, `group_visits` and `top_visits` outputs
 // ([spp, n] int32, indexed by orig) count each ray's live ray-steps and the
 // leaves, groups and super-groups its sweeps entered. Design, right and
 // simple first: no persistent threads, no queue of live rays; a dead ray's
@@ -59,6 +67,7 @@ namespace {
 using namespace spt;
 
 constexpr int kBlock = 128;
+constexpr int kIntegrateBlock = 256;
 constexpr int kRowHero = 6, kRowAlive = 7, kRowNValid = 8, kRowPrev = 9,
               kRowPower = 10;
 
@@ -213,18 +222,37 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(
   store_state(state, nrays, i, st, hero);
 }
 
+// The integrate step, in two launches. integrate_kernel: one thread a
+// sorted sample-ray reads its state (coalesced), computes its XYZ and
+// stores it as one 16-byte slot at [s, p] of its original index o = s * n
+// + p, the only scattered store of the forward form. sum_slots_kernel: one
+// thread a pixel adds its slots from s = 0, starting at +0.0 as the plain
+// sum does, so the sum is the plain version's bit for bit. Measured and
+// not kept (PERF.md): one launch in which each pixel's last
+// sample-ray, found by an atomic ticket, adds the slots (the fences and
+// atomics cost more than the second launch), and four sorted rays a
+// thread read as float4 rows.
 template <bool kSaveResiduals>
-__global__ void __launch_bounds__(kBlock) integrate_kernel(
+__global__ void __launch_bounds__(kIntegrateBlock) integrate_kernel(
     const float* __restrict__ tables, const float* __restrict__ state,
-    const int* __restrict__ orig, int n, int spp, float* __restrict__ xyz,
+    const int* __restrict__ orig, int n, int spp, float4* __restrict__ slot,
     float* __restrict__ hero_out, float* __restrict__ nvalid_out,
     float* __restrict__ power_out) {
-  __shared__ float s_tab[5 * kSamples];
-  stage(s_tab, tables, 5 * kSamples);
+  // CIE x and y as (row[c], row[c + 1]) pairs of each cell c, z likewise:
+  // three table reads a wavelength instead of six
+  __shared__ float4 s_xy[kSamples - 1];
+  __shared__ float2 s_z[kSamples - 1];
+  for (int c = threadIdx.x; c < kSamples - 1; c += blockDim.x) {
+    const float* x = tables + kCieX * kSamples + c;
+    const float* y = tables + kCieY * kSamples + c;
+    const float* z = tables + kCieZ * kSamples + c;
+    s_xy[c] = make_float4(x[0], x[1], y[0], y[1]);
+    s_z[c] = make_float2(z[0], z[1]);
+  }
   __syncthreads();
   const size_t nrays = (size_t)spp * n;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if ((size_t)i >= nrays) return;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nrays) return;
   const int o = orig[i];
   const float hero = state[kRowHero * nrays + i];
   float n_valid = state[kRowNValid * nrays + i];
@@ -233,21 +261,47 @@ __global__ void __launch_bounds__(kBlock) integrate_kernel(
   float power[kW];
 #pragma unroll
   for (int w = 0; w < kW; ++w) power[w] = state[(kRowPower + w) * nrays + i];
-  Curves cv;
-  hero_curves(hero, s_tab, cv);
-  float sx, sy, sz;
-  path_xyz(power, n_valid, cv, s_tab, sx, sy, sz);
-  xyz[3 * (size_t)o] = sx;
-  xyz[3 * (size_t)o + 1] = sy;
-  xyz[3 * (size_t)o + 2] = sz;
+  // XYZ of the sample-ray: path.cuh::path_xyz, each lut read as a pair
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    float lam, frac;
+    int cell;
+    comb_cell(hero, w, lam, cell, frac);
+    const float contrib = power[w] * ((float)w < n_valid ? kDelta : 0.0f);
+    const float4 xy = s_xy[cell];
+    const float2 z = s_z[cell];
+    sx = fmaf(contrib, fmaf(1.0f - frac, xy.x, frac * xy.y), sx);
+    sy = fmaf(contrib, fmaf(1.0f - frac, xy.z, frac * xy.w), sy);
+    sz = fmaf(contrib, fmaf(1.0f - frac, z.x, frac * z.y), sz);
+  }
+  slot[o] = make_float4(sx, sy, sz, 0.0f);
   if constexpr (kSaveResiduals) {
     // [spp, n] residuals: the flat index of (s, p) is o itself
     const int s = o / n, p = o - s * n;
     hero_out[o] = hero;
     nvalid_out[o] = n_valid;
 #pragma unroll
-    for (int w = 0; w < kW; ++w) power_out[((size_t)s * kW + w) * n + p] = power[w];
+    for (int w = 0; w < kW; ++w)
+      power_out[((size_t)s * kW + w) * n + p] = power[w];
   }
+}
+
+__global__ void __launch_bounds__(kIntegrateBlock)
+    sum_slots_kernel(const float4* __restrict__ slot, int n, int spp,
+                     float* __restrict__ xyz) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  for (int s = 0; s < spp; ++s) {
+    const float4 v = slot[(size_t)s * n + p];
+    ax = ax + v.x;
+    ay = ay + v.y;
+    az = az + v.z;
+  }
+  xyz[3 * (size_t)p] = ax;
+  xyz[3 * (size_t)p + 1] = ay;
+  xyz[3 * (size_t)p + 2] = az;
 }
 
 int grid_of(size_t nrays) { return (int)((nrays + kBlock - 1) / kBlock); }
@@ -339,20 +393,26 @@ extern "C" int wavefront_bounce_launch(uint32_t seed, SPT_SCENE_PARAMS, int b,
   return launch(bounce_kernel<false>, sc, stream, sc, b, state, orig, matres, cnt);
 }
 
-// XYZ [spp * n, 3] f32 of each sample-ray in original order; with hero
-// non-null also the residuals hero, n_valid [spp, n] and power [spp, 7, n].
+// XYZ [n, 3] f32 of each pixel, summed over its spp samples in ascending
+// order; with hero non-null also the residuals hero, n_valid [spp, n] and
+// power [spp, 7, n] in original order. slot: [spp * n] float4 scratch.
 extern "C" int wavefront_integrate_launch(const float* tables,
                                           const float* state, const int* orig,
-                                          int n, int spp, float* xyz,
-                                          float* hero, float* n_valid,
-                                          float* power, void* stream) {
+                                          int n, int spp, float* slot,
+                                          float* xyz, float* hero,
+                                          float* n_valid, float* power,
+                                          void* stream) {
   const size_t nrays = (size_t)spp * n;
   if (nrays == 0) return 0;
-  if (hero)
-    integrate_kernel<true><<<grid_of(nrays), kBlock, 0, (cudaStream_t)stream>>>(
-        tables, state, orig, n, spp, xyz, hero, n_valid, power);
-  else
-    integrate_kernel<false><<<grid_of(nrays), kBlock, 0, (cudaStream_t)stream>>>(
-        tables, state, orig, n, spp, xyz, hero, n_valid, power);
+  cudaStream_t st = (cudaStream_t)stream;
+  float4* slots = reinterpret_cast<float4*>(slot);
+  const int grid = (int)((nrays + kIntegrateBlock - 1) / kIntegrateBlock);
+  const auto kernel = hero ? integrate_kernel<true> : integrate_kernel<false>;
+  kernel<<<grid, kIntegrateBlock, 0, st>>>(tables, state, orig, n, spp, slots,
+                                           hero, n_valid, power);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sum_slots_kernel<<<(n + kIntegrateBlock - 1) / kIntegrateBlock,
+                     kIntegrateBlock, 0, st>>>(slots, n, spp, xyz);
   return (int)cudaGetLastError();
 }

@@ -182,7 +182,7 @@ WAVEFRONT_BOUNCE = Kernel(
 )
 WAVEFRONT_INTEGRATE = Kernel(
     "wavefront_integrate", "wavefront_kernel.cu", "wavefront_integrate_launch",
-    [P, P, P, I, I, P, P, P, P, P],
+    [P, P, P, I, I, P, P, P, P, P, P],
 )
 KERNELS = {
     k.name: k

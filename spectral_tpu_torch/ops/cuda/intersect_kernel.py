@@ -16,7 +16,8 @@ from . import build
 # triangle constant pack layout: [T, 16] =
 #   normal(0:3), d(3), edge_g(4:13, row-major 3x3), edge_c(13:16)
 TRI_PACK_WIDTH = 16
-# the pack lives in one block's static shared memory (48 KB)
+# the pack lives in one block's shared memory, 64 bytes a triangle, within
+# the 48 KB a launch gets without asking
 MAX_TRIS = 48 * 1024 // (4 * TRI_PACK_WIDTH)
 
 

@@ -63,7 +63,7 @@ from ...utils.constants import (
     to,
 )
 from ..bvh import morton_codes
-from ..fp32 import dot3, fma
+from ..fp32 import cos, dot3, fma, sin
 from ..intersect import (
     BIG,
     GROUP_SIZE,
@@ -385,8 +385,8 @@ def camera_rays(cam_vec, px, py, u0, u1, u_r, u_th):
     fy = py + (u1 - 0.5)
     dr = torch.sqrt(u_r) * has_defocus
     dth = _TWO_PI * u_th
-    du = dr * torch.cos(dth)
-    dv = dr * torch.sin(dth)
+    du = dr * cos(dth)
+    dv = dr * sin(dth)
     ox = fma(dv, ddvx, fma(du, ddux, cx))
     oy = fma(dv, ddvy, fma(du, dduy, cy))
     oz = fma(dv, ddvz, fma(du, dduz, cz))
@@ -486,8 +486,8 @@ def trace_bounce(ray, power, alive, n_valid, curves, u_a, u_b, u_c, tri_pack, ma
     sz = 2.0 * u_a - 1.0
     sphi = _TWO_PI * u_b
     sr = torch.sqrt(torch.clamp_min(fma(-sz, sz, 1.0), 0.0))
-    sx = sr * torch.cos(sphi)
-    sy = sr * torch.sin(sphi)
+    sx = sr * cos(sphi)
+    sy = sr * sin(sphi)
 
     # lambertian (material.cu:8-19); degenerate -> normal
     lx, ly, lz = nbx + sx, nby + sy, nbz + sz

@@ -7,8 +7,9 @@ Port of spectral_tpu/ops/pallas/wavefront_kernel.py (``render_rays_wavefront``
 one launch per bounce on a ray state [17, spp * N] kept in device memory
 (rows: origin, direction, hero, alive, n_valid, previous triangle, power):
 csrc/wavefront_kernel.cu's camera kernel traces the camera rays and bounce
-0, the bounce kernel each later bounce, the integrate kernel the XYZ of
-every sample-ray. Between bounces the rays are sorted stably by
+0, the bounce kernel each later bounce, and the integrate step (two
+kernels, one entry point) the XYZ of every sample-ray and each pixel's sum
+over its samples. Between bounces the rays are sorted stably by
 ``_sort_keys`` (ended rays last, then direction octant, then the Morton
 code of the origin) and the state gathered, so that neighbouring threads
 trace neighbouring rays and enter the same leaves. ``torch.argsort`` and
@@ -21,8 +22,10 @@ global pixel, sample, draw), or injected planes read at rand[s, :, p]) and
 write its residuals. The path arithmetic is the leaf megakernel's
 (csrc/path.cuh, csrc/leaf_sweep.cuh), so on the same draws both schedulers
 give the same paths, and the spp sum runs in ascending order as the
-megakernel's does. Sample-ray i of the state is updated in place by the
-bounce kernel; each gather makes the next state.
+megakernel's does (in the integrate step's second kernel: the counterpart
+of the JAX package's scatter and sum after its integrate kernel).
+Sample-ray i of the state is updated in place by the bounce kernel; each
+gather makes the next state.
 
 ``render_rays_wavefront`` launches the kernels for CUDA tensors and runs the
 plain versions (``camera_bounce_reference``, ``bounce_reference``,
@@ -192,15 +195,23 @@ def bounce_reference(
             out.view(-1)[o] += c
 
 
-def integrate_reference(tables, state, orig, n, spp, xyz, hero=None, n_valid=None, power=None):
-    """Plain version of the integrate kernel: XYZ [spp * N, 3] of each
-    sample-ray written at its original index; with ``hero`` also the
-    residuals hero, n_valid [spp, N] and power [spp, W, N]."""
+def integrate_reference(tables, state, orig, n, spp, pixel_xyz, hero=None, n_valid=None, power=None):
+    """Plain version of the integrate step: ``pixel_xyz`` [N, 3] gets each
+    pixel's XYZ, the sum over its samples in ascending order from 0 of each
+    sample-ray's XYZ (the megakernel's order); with ``hero`` also the
+    residuals hero, n_valid [spp, N] and power [spp, W, N], all in original
+    order. As the kernels do, each sample-ray's XYZ goes to its slot [s, p]
+    and the slots are added from s = 0."""
     o = orig.long()
     nv = torch.where(state[_ROW_ALIVE] > 0.0, 0.0, state[_ROW_NVALID])
     _, cell, frac, _, _ = hero_curves(state[_ROW_HERO], tables)
     pw = [state[_ROW_POWER + w] for w in range(W)]
-    xyz[o] = torch.stack(path_xyz(pw, nv, cell, frac, tables), dim=1)
+    slot = torch.empty((spp * n, 3), dtype=torch.float32, device=state.device)
+    slot[o] = torch.stack(path_xyz(pw, nv, cell, frac, tables), dim=1)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=state.device)
+    for s in range(spp):
+        acc = acc + slot[s * n:(s + 1) * n]
+    pixel_xyz.copy_(acc)
     if hero is not None:
         hero.view(-1)[o] = state[_ROW_HERO]
         n_valid.view(-1)[o] = nv
@@ -231,10 +242,11 @@ def _launch_bounce(seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bou
     )
 
 
-def _launch_integrate(tables, state, orig, n, spp, xyz, hero=None, n_valid=None, power=None):
+def _launch_integrate(tables, state, orig, n, spp, pixel_xyz, hero=None, n_valid=None, power=None):
+    slot = torch.empty((spp * n, 4), dtype=torch.float32, device=state.device)
     build.WAVEFRONT_INTEGRATE.launch(
-        state.device, tables.data_ptr(), state.data_ptr(), orig.data_ptr(), n, spp,
-        *(_ptr(x) for x in (xyz, hero, n_valid, power)),
+        state.device, tables.data_ptr(), state.data_ptr(), orig.data_ptr(), n, spp, slot.data_ptr(),
+        *(_ptr(x) for x in (pixel_xyz, hero, n_valid, power)),
     )
 
 
@@ -275,13 +287,8 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
         orig = orig.index_select(0, perm)
         bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep)
 
-    xyz_rays = torch.empty((nrays, 3), dtype=f32, device=dev)
-    integrate(tables, state, orig, n, spp, xyz_rays, *(res[:3] if res is not None else ()))
-    # the megakernel's ascending per-sample sum, from 0
-    per_sample = xyz_rays.reshape(spp, n, 3)
-    xyz = torch.zeros((n, 3), dtype=f32, device=dev)
-    for s in range(spp):
-        xyz = xyz + per_sample[s]
+    xyz = torch.empty((n, 3), dtype=f32, device=dev)
+    integrate(tables, state, orig, n, spp, xyz, *(res[:3] if res is not None else ()))
     return (xyz, *res) if save_residuals else xyz
 
 

@@ -13,10 +13,25 @@ on whether ``n . o`` was contracted. The port therefore contracts exactly
 where XLA does: the CUDA sources call ``fmaf`` at those places and are
 compiled with -fmad=false so that nvcc fuses nothing else; the plain
 versions call ``fma`` below.
+
+The transcendentals differ between the three in the last bits (ROADMAP
+C5, measured on the value ranges the kernels feed them): XLA's CPU sqrt is
+correctly rounded as CUDA's sqrtf is, and torch's CPU sqrt is 1 ulp off on
+~0.7% of inputs; XLA computes 1/sqrt as an rsqrt that is 1 ulp from the
+two-rounding 1/sqrtf of the kernels on ~1/3 of inputs; XLA's CPU sin and
+cos are the C library's sinf and cosf, from which torch's CPU sin and cos
+differ by 1 ulp on ~5% of [0, 2 pi). Only the last flips paths (a
+scattered direction's last bit decides whether a PRISM path finds the
+light), so ``sin`` and ``cos`` below call the C library on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
+import numpy as np
 import torch
 
 
@@ -36,3 +51,30 @@ def dot3(a0, a1, a2, b0, b1, b2) -> torch.Tensor:
     """``a0*b0 + a1*b1 + a2*b2`` as XLA contracts it:
     fma(a2, b2, fma(a0, b0, a1*b1))."""
     return fma(a2, b2, fma(a0, b0, a1 * b1))
+
+
+@functools.lru_cache(maxsize=None)
+def _libm(name: str):
+    """The C library's float function ``name``, element by element over a
+    numpy array."""
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float]
+    return np.frompyfunc(fn, 1, 1)
+
+
+def _c_float(name: str, x: torch.Tensor) -> torch.Tensor:
+    flat = x.detach().to(torch.float32).contiguous().view(-1).numpy()
+    return torch.from_numpy(_libm(name)(flat).astype(np.float32)).view(x.shape)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """float32 sine: the C library's sinf on the CPU, as XLA's CPU backend
+    computes it; torch's sin elsewhere (on CUDA tensors CUDA's sinf, which
+    the kernels call)."""
+    return _c_float("sinf", x) if x.device.type == "cpu" else torch.sin(x)
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """float32 cosine, as ``sin``: the C library's cosf on the CPU."""
+    return _c_float("cosf", x) if x.device.type == "cpu" else torch.cos(x)

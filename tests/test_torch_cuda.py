@@ -30,7 +30,8 @@ from spectral_tpu_torch.models.camera import camera_vector
 from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, build_tri_field, scene_camera
 from spectral_tpu_torch.ops.cuda import build
 from spectral_tpu_torch.ops.cuda.grad_kernel import launch_shape, render_grads, render_grads_reference
-from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
+from spectral_tpu_torch.ops.cuda import wavefront_kernel
+from spectral_tpu_torch.ops.cuda.intersect_kernel import MAX_TRIS, intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     n_uniforms,
     order_leaves_near_to_far,
@@ -41,7 +42,11 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     render_rays_reference,
     render_rays_residuals,
 )
-from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront, render_rays_wavefront_reference
+from spectral_tpu_torch.ops.cuda.wavefront_kernel import (
+    STATE_ROWS,
+    render_rays_wavefront,
+    render_rays_wavefront_reference,
+)
 from spectral_tpu_torch.parallel import train_step_fused, trainable_params
 from spectral_tpu_torch.ops.intersect import nearest_hit
 
@@ -66,9 +71,91 @@ def test_intersect_kernel_equals_plain(cuda_device):
     torch.cuda.synchronize()
     assert build.INTERSECT.launches == before + 1
     ref = nearest_hit(o, d, tri)
-    for a, b in zip(got[1:], ref[1:]):
+    for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=0)
+
+
+def _tri_pack(n_tris: int, dev) -> torch.Tensor:
+    """n_tris packed triangles: CORNELL's first ones, or past its 42 a
+    1008-triangle field's first ones."""
+    if n_tris <= 42:
+        return pack_tris(build_scene(CORNELL, dev))[:n_tris].contiguous()
+    field = pack_tris(build_tri_field(1000, seed=3, device=dev))
+    return field[:n_tris].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", (1, 42, MAX_TRIS))
+@pytest.mark.parametrize("n", (1, 127, 129, 360_000))
+def test_intersect_kernel_shapes_bit_equal(cuda_device, n, n_tris):
+    """Every output of the intersect kernel equal to the plain version's, at
+    ray counts around a block's rays and at the default frame's, and from
+    one triangle to the most the kernel takes."""
+    rng = np.random.default_rng(n + n_tris)
+    o = rng.uniform([20.0, 20.0, -400.0], [535.0, 535.0, 535.0], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    tri = _tri_pack(n_tris, cuda_device)
+    assert tri.shape[0] == n_tris
+    before = build.INTERSECT.launches
+    got = intersect(o, d, tri)
+    torch.cuda.synchronize()
+    assert build.INTERSECT.launches == before + 1
+    ref = nearest_hit(o, d, tri)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    if n > 1:
+        assert ref[2].any()
+
+
+def _final_state(n: int, spp: int, dev, seed: int):
+    """A ray state after the last bounce, in a random sorted order: heroes
+    over the whole band, ended and unended paths, n_valid 0-7, powers of
+    both signs' magnitudes; and its orig."""
+    rng = np.random.default_rng(seed)
+    nrays = n * spp
+    st = np.zeros((STATE_ROWS, nrays), np.float32)
+    st[0:6] = rng.normal(size=(6, nrays))
+    st[6] = rng.uniform(360.0, 830.0, nrays)
+    st[7] = rng.uniform(size=nrays) < 0.2
+    st[8] = rng.integers(0, 8, nrays)
+    st[9] = -1.0
+    st[10:] = rng.lognormal(0.0, 2.0, (7, nrays))
+    orig = rng.permutation(nrays).astype(np.int32)
+    return torch.from_numpy(st).to(dev), torch.from_numpy(orig).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", (False, True), ids=("forward", "residual"))
+@pytest.mark.parametrize("n", (1000, 100_003))
+@pytest.mark.parametrize("spp", (1, 3, 4))
+def test_integrate_step_bit_equal(cuda_device, spp, n, residual):
+    """The integrate step (each sample-ray's XYZ into its slot, then each
+    pixel's slots summed) against its plain version on a synthetic final
+    state in a random sorted order, at pixel counts that are no multiple of
+    a block, forward and residual (into garbage-filled buffers); twice in a
+    row bit-identical, one launch count a step."""
+    state, orig = _final_state(n, spp, cuda_device, seed=spp * n)
+    tab = pack_scene(build_scene(CORNELL, cuda_device))[2]
+
+    def outputs():
+        xyz = torch.full((n, 3), 7.0, device=cuda_device)
+        res = _garbage(spp, 1, n, cuda_device)[:3] if residual else ()
+        return xyz, res
+
+    xyz, res = outputs()
+    before = build.WAVEFRONT_INTEGRATE.launches
+    wavefront_kernel._launch_integrate(tab, state, orig, n, spp, xyz, *res)
+    again, res_again = outputs()
+    wavefront_kernel._launch_integrate(tab, state, orig, n, spp, again, *res_again)
+    torch.cuda.synchronize()
+    assert build.WAVEFRONT_INTEGRATE.launches == before + 2
+    ref, ref_res = outputs()
+    wavefront_kernel.integrate_reference(tab, state, orig, n, spp, ref, *ref_res)
+    assert torch.equal(xyz, ref) and torch.equal(again, ref)
+    for a, b, c in zip(res, res_again, ref_res):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert float(ref.abs().sum()) > 0
 
 
 @pytest.mark.cuda

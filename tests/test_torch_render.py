@@ -15,14 +15,22 @@ port mirrors where XLA's CPU backend fuses multiply-adds, ops/fp32.py,
 held bit for bit by tests/test_torch_fp32.py; with every product rounded
 on its own, PRISM's refracted rays flip at their entry face and (b)
 fails.)
+(b') One PRISM sample-ray of a 32x32, 16 spp, 6 bounce frame (stored as
+    case prism_flip): its scattered direction's last bit decides whether
+    it finds the light. With ops/fp32.py's sin and cos (the C library's,
+    as XLA's CPU backend computes them) the port follows the JAX path;
+    with torch's own CPU sin and cos (1 ulp off on ~5% of [0, 2 pi)) the
+    same draws miss the light (ROADMAP C5).
 (c) The CLI writes a decodable BMP whose ceiling light is bright.
 (d) --device cuda without a GPU raises instead of running on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -38,6 +46,7 @@ from spectral_tpu_torch.config import RenderParams
 from spectral_tpu_torch.io.image import decode_bmp
 from spectral_tpu_torch.models.camera import camera_vector
 from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, scene_camera
+from spectral_tpu_torch.ops.cuda import build
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     hash_uniforms,
     n_uniforms,
@@ -101,6 +110,48 @@ def test_prism_equals_pallas_interpret():
     ).reshape(n, 3).numpy()
     assert (ref.sum(-1) > 0).sum() >= 20  # not a vacuous comparison
     assert_render_close(got, ref)
+
+
+def test_prism_path_follows_xla_sin_and_cos(monkeypatch):
+    """(b'): the path of one sample-ray hangs on the last bit of a sin or a
+    cos."""
+    from spectral_tpu_torch.ops.cuda import render_kernel
+
+    x = refs.prism_flip_inputs()
+    ref = refs.outputs("prism_flip", x)["xyz"]
+    w, h, bounces = int(x["w"]), int(x["h"]), int(x["bounces"])
+    tri, mat, tab = pack_scene(build_scene(PRISM, "cpu"))
+    args = (
+        camera_vector(scene_camera(PRISM, w, h, "cpu")), 0, tri, mat, tab, torch.from_numpy(x["px"][:1].copy()),
+        torch.from_numpy(x["py"][:1].copy()), 1, bounces, w, torch.from_numpy(x["rand"][:, :, :1].copy()),
+    )
+    assert ref[0, 2] > 1.0  # the JAX path reaches the light
+    assert_render_close(render_rays_reference(*args).numpy(), ref)
+    monkeypatch.setattr(render_kernel, "sin", torch.sin)
+    monkeypatch.setattr(render_kernel, "cos", torch.cos)
+    assert np.abs(render_rays_reference(*args).numpy() - ref).max() > 1.0
+
+
+def _c_params(source: str, entry: str) -> list[str]:
+    """The parameters of a C entry point of a csrc/ source, its macros
+    expanded."""
+    text = (build.CSRC / source).read_text()
+    sig = re.search(rf'extern "C" int {entry}\((.*?)\)\s*{{', text, re.S).group(1)
+    for name, body in re.findall(r"#define (\w+)\s+((?:.*\\\n)*.*)", text):
+        sig = sig.replace(name, body.replace("\\\n", " "))
+    return [p.strip() for p in sig.split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(build.KERNELS))
+def test_entry_point_argtypes_match_the_source(name):
+    """Each kernel's ctypes argument types (the stream last) are its C entry
+    point's parameters: past the end of the list, ctypes passes a pointer
+    as a 32-bit int."""
+    k = build.KERNELS[name]
+    params = _c_params(k.source.name, k.entry)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_uint32 if p.startswith("uint32_t") else ctypes.c_int
+            for p in params]
+    assert list(k.argtypes) == want, params
 
 
 def test_render_rays_checks_inputs():

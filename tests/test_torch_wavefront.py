@@ -40,11 +40,19 @@ from spectral_tpu.ops.intersect import nearest_hit as jax_nearest_hit
 from spectral_tpu_torch.diff import render_chunk_diff_fused
 from spectral_tpu_torch.models.camera import camera_vector
 from spectral_tpu_torch.models.scenes import CORNELL, build_tri_field, scene_camera, scene_from_numpy
-from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_auto, render_rays_residuals
+from spectral_tpu_torch.ops.cuda import wavefront_kernel
+from spectral_tpu_torch.ops.cuda.render_kernel import (
+    W,
+    hero_curves,
+    pack_scene_auto,
+    path_xyz,
+    render_rays_residuals,
+)
 from spectral_tpu_torch.ops.cuda.wavefront_kernel import (
     STATE_ROWS,
     bounce_reference,
     camera_bounce_reference,
+    integrate_reference,
     render_rays_wavefront,
 )
 from spectral_tpu_torch.parallel import train_step_fused, trainable_params
@@ -158,6 +166,42 @@ def test_departed_rays_follow_the_jax_exact_sweep(field):
         assert exact == port_m[s, b, p], (s, b, p, exact, port_m[s, :, p], jax_m[s, :, p])
         checked += 1
     assert checked > 0
+
+
+def _per_ray_then_ascending_sum(tables, state, orig, n, spp):
+    """The integrate step as two passes: each sample-ray's XYZ written at
+    its original index, then the samples added in ascending order from 0."""
+    o = orig.long()
+    nv = torch.where(state[7] > 0.0, 0.0, state[8])
+    _, cell, frac, _, _ = hero_curves(state[6], tables)
+    xyz_rays = torch.empty((spp * n, 3))
+    xyz_rays[o] = torch.stack(path_xyz([state[10 + w] for w in range(W)], nv, cell, frac, tables), dim=1)
+    per_sample = xyz_rays.reshape(spp, n, 3)
+    xyz = torch.zeros((n, 3))
+    for s in range(spp):
+        xyz = xyz + per_sample[s]
+    return xyz
+
+
+def test_integrate_step_equals_per_ray_then_ascending_sum(field):
+    """The plain integrate step, which sums each pixel's slots as the kernel
+    does, gives the two-pass sum bit for bit on the field's final sorted
+    state, and the sorted render's xyz is that sum."""
+    finals = []
+
+    def integrate(tables, state, orig, n, spp, pixel_xyz, *res):
+        integrate_reference(tables, state, orig, n, spp, pixel_xyz, *res)
+        finals.append((tables, state.clone(), orig.clone(), n, spp, pixel_xyz.clone()))
+
+    args, leaf = field["args"], field["leaf"]
+    xyz = wavefront_kernel._wavefront(
+        (camera_bounce_reference, bounce_reference, integrate), *args[:5], leaf, *args[5:], False,
+        (None, None, None, None), None,
+    )
+    (tables, state, orig, n, spp, pixel_xyz), = finals
+    assert torch.equal(pixel_xyz, _per_ray_then_ascending_sum(tables, state, orig, n, spp))
+    assert torch.equal(xyz, pixel_xyz) and torch.equal(xyz, field["sorted"][0])
+    assert not torch.equal(orig, torch.arange(spp * n, dtype=torch.int32))  # the state was sorted
 
 
 def test_train_step_on_field_lowers_the_loss():

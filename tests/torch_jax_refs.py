@@ -14,7 +14,7 @@ case's inputs and checks them against the record. Regenerate the file
     JAX_PLATFORMS=cpu python tests/torch_jax_refs.py
 
 Cases: ``replay_tris`` (tests/test_torch_grad.py), ``intersect_cornell``
-(tests/test_torch_intersect.py), ``prism_render`` (tests/test_torch_render.py),
+(tests/test_torch_intersect.py), ``prism_render`` and ``prism_flip`` (tests/test_torch_render.py),
 ``fused_prism`` (tests/test_torch_diff.py), ``field_mega``
 (tests/test_torch_wavefront.py), ``field_sorted`` and ``field_replay``
 (tests/test_torch_wavefront_grad.py).
@@ -181,6 +181,45 @@ def prism_render_jax(x: dict) -> dict:
         int(x["spp"]), int(x["bounces"]), ray_tile=x["rand"].shape[2], interpret=True, rand=jnp.asarray(x["rand"]),
     )
     return dict(xyz=np.asarray(ref)[:n])
+
+
+def prism_flip_inputs() -> dict:
+    """One PRISM sample-ray whose path hangs on the last bit of a sin or a
+    cos: pixel (30, 18) of a 32x32 frame, sample 6 of the planes of seed
+    7 drawn for 16 spp and 6 bounces over a 1024-ray tile, alone in a
+    768-ray tile (the other rays at pixel (0, 0) with zero planes); the
+    JAX package's pack and camera vector."""
+    from spectral_tpu.models.scenes import PRISM
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+    from spectral_tpu.models.scenes import scene_camera as jax_scene_camera
+    from spectral_tpu.ops.pallas.render_kernel import camera_vector as jax_camera_vector
+    from spectral_tpu.ops.pallas.render_kernel import n_uniforms as jax_n_uniforms
+    from spectral_tpu.ops.pallas.render_kernel import pack_scene as jax_pack_scene
+
+    w = h = 32
+    bounces, tile = 6, 768
+    planes = np.random.default_rng(7).uniform(size=(16, jax_n_uniforms(bounces), 1024)).astype(np.float32)
+    rand = np.zeros((1, jax_n_uniforms(bounces), tile), np.float32)
+    rand[0, :, 0] = planes[6, :, 18 * w + 30]
+    px = np.zeros(tile, np.float32)
+    py = np.zeros(tile, np.float32)
+    px[0], py[0] = 30.0, 18.0
+    tri, mat, tab = jax_pack_scene(jax_build_scene(PRISM))
+    cam = jax_camera_vector(jax_scene_camera(PRISM, w, h))
+    return dict(rand=rand, px=px, py=py, tri=np.asarray(tri), mat=np.asarray(mat), tab=np.asarray(tab),
+                cam=np.asarray(cam), w=np.int32(w), h=np.int32(h), spp=np.int32(1), bounces=np.int32(bounces))
+
+
+def prism_flip_jax(x: dict) -> dict:
+    import jax.numpy as jnp
+
+    from spectral_tpu.ops.pallas.render_kernel import render_rays_pallas
+
+    ref = render_rays_pallas(
+        jnp.asarray(x["cam"]), jnp.int32(0), *(jnp.asarray(x[k]) for k in ("tri", "mat", "tab", "px", "py")),
+        int(x["spp"]), int(x["bounces"]), ray_tile=x["rand"].shape[2], interpret=True, rand=jnp.asarray(x["rand"]),
+    )
+    return dict(xyz=np.asarray(ref)[:1])
 
 
 def sky_lit_jax(scene):
@@ -372,8 +411,8 @@ def field_replay_jax(x: dict) -> dict:
 
 CASES = {
     name: (globals()[f"{name}_inputs"], globals()[f"{name}_jax"])
-    for name in ("replay_tris", "intersect_cornell", "prism_render", "fused_prism", "field_mega", "field_sorted",
-                 "field_replay")
+    for name in ("replay_tris", "intersect_cornell", "prism_render", "prism_flip", "fused_prism", "field_mega",
+                 "field_sorted", "field_replay")
 }
 
 
