@@ -70,16 +70,50 @@ Phases, each fatal on failure:
 11. the field training path: three ``train_step_fused`` steps on the 10k
    field at 512x256, 4 spp, 6 bounces (bench.py:228-280), from a perturbed
    white against a target at the true materials, and one fused gradient
-   through the leaf megakernel's residual form (sched="mega").
+   through the leaf megakernel's residual form (sched="mega");
+12. the XLA-style renderer (render/wavefront.py), whose nearest hits the
+   intersect kernel selects: CORNELL at the JAX bench row's 1920x135, 16
+   spp, 8 bounces (bench.py:163-180) under no_grad, bit-equal to the same
+   render with the plain version selecting, one intersect launch a sample
+   and bounce, its ms, nominal Mrays/s and the intersect's share (CUDA
+   events around each selection); the intersect kernel as the path launches
+   it (the dots in the XLA order) on the path's first selection, held
+   equal to its plain version and timed beside it, its bound and its issue
+   bound; the CLI with ``--impl xla`` (256x256, 16
+   spp, 8 bounces: a lit box in the BMP); render_chunk_diff (the kernel
+   forward, the XLA-style VJP backward) on CORNELL 256x256, 16 spp, 8
+   bounces, timed with its peak memory, with one render launch forward and
+   two intersect launches a sample and bounce backward (the XLA-style
+   forward and its recompute under the checkpoint), its forward bit-equal
+   to the plain render at the same seed; the reparameterized PRISM
+   Sellmeier gradient at examples/inverse_dispersion.py's XLA shape (the
+   32x16 crop of 32x32, 16 spp, 6 bounces; finite and nonzero); three
+   autograd ``train_step``s at examples/inverse_rendering.py's shape
+   (Cornell 32x32, 8 spp, 4 bounces; a falling loss); the LBVH walk on
+   with_bvh(build_tri_field(10008, 0), 8) over a 64x32 crop, 2 spp, 3
+   bounces, against the dense selection (10,008 triangles, in tiles) on the
+   same draws (more than 99% of values within rtol 2e-4 / atol 1e-5, the
+   JAX package's tests/test_bvh.py:151-169); and the parity contract of the
+   two renderers (tests/test_parity_contract.py's method on CORNELL and
+   PRISM at 128x128, 256 spp, 5 bounces: the kernel image's
+   block-downsampled error against the XLA-style images at most 1.1x their
+   reseed error, mean luminance within 2%, BASELINE.md's on-chip contract).
 
-Launch counts are set to 0 just before each of phases 5-7 and 10-11 and
-read just after. Prints a ``{"kernels": [...]}`` line after phase 11, with
-each kernel's launches on its path (the render megakernel's from phase 5,
-the fused kernels' from phase 6, the leaf megakernel's and the sorted
-kernels' from phase 10, the leaf residual form's from phase 11), then the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Exits
+Launch counts are set to 0 just before each of phases 5-7, 10-11 and the
+XLA-style render, the CLI and each render_chunk_diff pass of phase 12, and
+read just after. Prints a ``{"kernels": [...]}`` line after phase 12, with
+each kernel's launches on its path (the render megakernel's from phase 5
+and, beside them, from render_chunk_diff's forward, the fused kernels'
+from phase 6, the leaf megakernel's and the sorted kernels' from phase 10,
+the leaf residual form's from phase 11, the intersect kernel's from phase
+12, whose times are those of its instantiation on that path, with phase
+4's beside them),
+then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
+
+``python3 chip_smoke.py --xla`` runs phase 12 alone (after the build) and
+prints what it measured as one JSON line.
 
 ``python3 chip_smoke.py --leaf-sizes`` instead times both large-scene
 schedulers on the 10k and 200k fields at leaf sizes 8 to 128 (the sweep
@@ -170,6 +204,15 @@ TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_SEED = 1920, 1080, 16, 8, 1234
 # SGD on the un-normalized sum, whose c0 gradient (it multiplies lambda^2)
 # grows with the pixel count: 1e-13 per 256 pixels
 TRAIN_LR = 1e-13 * 256 / (TRAIN_W * TRAIN_H)
+# the XLA-style renderer at the JAX bench row's shape (bench.py:163-180)
+XLA_W, XLA_H, XLA_SPP, XLA_BOUNCES = 1920, 135, 16, 8
+# the parity contract of the two renderers (BASELINE.md round 2, on chip)
+PARITY_SIZE, PARITY_SPP, PARITY_BOUNCES, PARITY_CHUNK = 128, 256, 5, 16
+PARITY_RATIO, PARITY_LUM = 1.1, 0.02
+# autograd SGD on the mean loss at 32x32 (examples/inverse_rendering.py):
+# the fused path's rate for the un-normalized sum times the 3 * 32 * 32
+# terms of the mean
+XLA_TRAIN_LR = 1e-13 * 256 / (32 * 32) * (3 * 32 * 32)
 
 
 def log(msg: str) -> None:
@@ -282,13 +325,15 @@ def sass_loop(lib, name: str, marker: str = "MUFU.RCP") -> tuple[int, int]:
     return best[1], best[0][0]
 
 
-def intersect_issue_bound(tests: int) -> dict:
+def intersect_issue_bound(tests: int, form: str = "") -> dict:
     """The least time the card could issue the dense intersect's triangle
     tests: the instructions of its loop a test (sass_loop) x tests over
-    (132 SMs x 128 lanes x the SM's top clock, nvidia-smi)."""
+    (132 SMs x 128 lanes x the SM's top clock, nvidia-smi). ``form``: the
+    mangled template arguments of one instantiation (``ILb1ELb0E`` is
+    intersect_kernel<true, false>), else the loop of any."""
     from spectral_tpu_torch.ops.cuda import build
 
-    n_ins, per_iter = sass_loop(build.INTERSECT.library(), "intersect_kernel")
+    n_ins, per_iter = sass_loop(build.INTERSECT.library(), "intersect_kernel" + form)
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60, check=True)
     mhz = float(out.stdout.strip().splitlines()[0])
@@ -977,6 +1022,295 @@ def replay_rel(got: list, ref: list) -> float:
     return worst
 
 
+def block_rel(a: np.ndarray, b: np.ndarray, block: int = 8) -> float:
+    """tests/test_parity_contract.py's error of two images [H, W, 3]: the
+    mean over 8x8 blocks of |a - b|_1 / (|a|_1 + 1e-3) of the block means."""
+    def down(img):
+        h, w, c = img.shape
+        return img.reshape(h // block, block, w // block, block, c).mean((1, 3))
+
+    da, db = down(a), down(b)
+    return float((np.abs(da - db).sum(-1) / (np.abs(da).sum(-1) + 1e-3)).mean())
+
+
+def xla_phase(dev, smi: str) -> dict:
+    """Phase 12: the XLA-style renderer, its CLI, its autograd paths, the
+    LBVH and the parity contract. Returns what the kernels line reports."""
+    import dataclasses as dc
+
+    from spectral_tpu_torch import main as cli
+    from spectral_tpu_torch.diff import render_chunk_diff
+    from spectral_tpu_torch.io.image import decode_bmp
+    from spectral_tpu_torch.models.camera import camera_vector
+    from spectral_tpu_torch.models.materials import tabulate
+    from spectral_tpu_torch.models.scenes import CORNELL, PRISM, build_scene, build_tri_field, scene_camera, with_bvh
+    from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect
+    from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_auto, render_rays_reference
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_chunk as kernel_chunk
+    from spectral_tpu_torch.ops.intersect import nearest_hit
+    from spectral_tpu_torch.parallel import render_image_sharded, train_step
+    from spectral_tpu_torch.render import wavefront
+
+    cornell = build_scene(CORNELL, dev)
+    w, h, spp, b = XLA_W, XLA_H, XLA_SPP, XLA_BOUNCES
+    cam = scene_camera(CORNELL, w, h, dev)
+    nominal = w * h * spp * b
+    for k in build.KERNELS.values():
+        k.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        xyz = wavefront.render_chunk(cornell, cam, 1984, 0, 0, w, h, spp, b)
+        end.record()
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+    first_ms = start.elapsed_time(end)
+    if launches.get("intersect") != spp * b or len(launches) != 1:
+        raise SystemExit(f"XLA-style render: launches {launches}, not one intersect launch a sample and bounce")
+    with torch.no_grad():
+        start.record()
+        wavefront.render_chunk(cornell, cam, 1984, 0, 0, w, h, spp, b)
+        end.record()
+        torch.cuda.synchronize()
+        x_ms = start.elapsed_time(end)
+        spans, first_call = [], []
+
+        def timed(o, d, tri):
+            if not first_call:
+                first_call.append((o, d, tri))
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = intersect(o, d, tri, xla=True)
+            z.record()
+            spans.append((a, z))
+            return out
+
+        start.record()
+        timed_xyz = wavefront.render_chunk(cornell, cam, 1984, 0, 0, w, h, spp, b, select=timed)
+        end.record()
+        torch.cuda.synchronize()
+        timed_ms = start.elapsed_time(end)
+        b1_ms = sum(a.elapsed_time(z) for a, z in spans)
+        t0 = time.perf_counter()
+        plain = wavefront.render_chunk(cornell, cam, 1984, 0, 0, w, h, spp, b,
+                                       select=lambda o, d, t: nearest_hit(o, d, t, xla=True))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if not (torch.equal(xyz, plain) and torch.equal(xyz, timed_xyz)):
+        raise SystemExit("XLA-style render: the intersect kernel's selection differs from the plain version's")
+    lum = xyz[..., 1] / spp
+    if not torch.isfinite(xyz).all() or float(lum.mean()) <= 0.0:
+        raise SystemExit("XLA-style render: not finite or black")
+    log(f"XLA-style render: Cornell {w}x{h}, {spp} spp, {b} bounces, no_grad: {x_ms} ms (first {first_ms} ms), "
+        f"{nominal / x_ms / 1e3} nominal Mrays/s; launches {launches}; the intersect kernel {b1_ms} ms of a "
+        f"{timed_ms} ms render with events around each selection ({b1_ms / timed_ms:.4f}); bit-equal to the "
+        f"render with the plain selection ({plain_s} s); mean Y {float(lum.mean())}; {smi}")
+    del xyz, plain, timed_xyz
+
+    # the intersect kernel as the path launches it (xla=True: intersect_kernel<true, false>) on the path's
+    # first selection (sample 0, bounce 0: the camera rays)
+    po, pd, ptri = first_call[0]
+    got = intersect(po, pd, ptri, xla=True)
+    ref = nearest_hit(po, pd, ptri, xla=True)
+    torch.cuda.synchronize()
+    for a, z, what in zip(got, ref, ("t", "idx", "hit", "front")):
+        if not torch.equal(a, z):
+            raise SystemExit(f"intersect (xla order): {what} differs from the plain version")
+    p_err = float((got[0] - ref[0]).abs().max())
+    p_ms, p_host_us = device_ms(lambda: intersect(po, pd, ptri, xla=True), 20)
+    p_b2b_ms = cuda_ms(lambda: intersect(po, pd, ptri, xla=True), 20)
+    p_plain_ms = cuda_ms(lambda: nearest_hit(po, pd, ptri, xla=True), 3)
+    p_n, p_t = po.shape[0], ptri.shape[0]
+    p_bound, p_by = bound_ms(p_n * p_t * SWEEP_FLOPS_PER_TRI, 4 * ptri.numel() + p_n * (24 + 4 + 4 + 1 + 1))
+    p_issue = intersect_issue_bound(p_n * p_t, "ILb1ELb0E")
+    log(f"intersect kernel (xla order) on the path's first selection, {p_n} rays x {p_t} tris: t, idx, hit, front "
+        f"equal ({int(ref[2].sum())} hits); device {p_ms} ms a call (queued behind a sleep), host {p_host_us} us a "
+        f"call, back-to-back events {p_b2b_ms} ms; plain {p_plain_ms} ms; bound {p_bound} ms ({p_by}); issue bound "
+        f"{p_issue['ms']} ms ({p_issue['per_test']} instructions a test in the SASS loop); {smi}")
+    path_b1 = {"ms": p_ms, "host_us_per_call": p_host_us, "back_to_back_ms": p_b2b_ms, "plain_ms": p_plain_ms,
+               "bound_ms": p_bound, "bound_by": p_by, "issue_bound": p_issue, "max_abs_err": p_err,
+               "shape": f"{p_n} rays (the path's sample 0, bounce 0), {p_t} tris"}
+    del first_call, po, pd, got, ref
+
+    # the CLI through the XLA-style renderer
+    for k in build.KERNELS.values():
+        k.launches = 0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["--impl", "xla", "-xr", "256", "-ns", "16", "-bl", "8", "--save", "--no-show", "-t", "xla"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            bmps = sorted(os.listdir("renders"))
+            with open(os.path.join("renders", bmps[0]), "rb") as f:
+                img = decode_bmp(f.read())
+        finally:
+            os.chdir(cwd)
+    cli_launches = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+    ilum = img.astype(np.float64).mean(-1)
+    light = ilum[36:40, 118:138]  # inside the ceiling light (the 600x600 frame's rows 83-95, cols 270-330)
+    log(f"CLI --impl xla: rc {rc}, 256x256, 16 spp, 8 bounces, {cli_s} s end to end, launches {cli_launches}, "
+        f"image mean {ilum.mean():.1f}, ceiling-light region mean {light.mean():.1f}")
+    if rc != 0 or cli_launches != {"intersect": 16 * 8} or img.shape != (256, 256, 3):
+        raise SystemExit("CLI --impl xla did not render through the XLA-style renderer")
+    if ilum.mean() < 5 or light.mean() < 200:
+        raise SystemExit("CLI --impl xla: the image is black or unlit")
+
+    # render_chunk_diff: the kernel forward, the XLA-style VJP backward
+    cam256 = scene_camera(CORNELL, 256, 256, dev)
+    d_spp, d_b = 16, 8
+    keys = ("coeffs", "emission_power")
+    leaves = {k: getattr(cornell.materials, k).clone().requires_grad_(True) for k in keys}
+    mats = dc.replace(cornell.materials, **leaves)
+    cot = torch.from_numpy(np.random.default_rng(5).normal(size=(256, 256, 3)).astype(np.float32)).to(dev)
+    diff_ms, diff_mem, diff_launches = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for k in build.KERNELS.values():
+            k.launches = 0
+        start.record()
+        out = render_chunk_diff(mats, cornell, cam256, 77, 0, 0, 256, 256, d_spp, d_b)
+        fwd = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+        for k in build.KERNELS.values():
+            k.launches = 0
+        grads = torch.autograd.grad((out * cot).sum(), list(leaves.values()))
+        end.record()
+        bwd = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+        torch.cuda.synchronize()
+        diff_ms.append(start.elapsed_time(end))
+        diff_mem.append(torch.cuda.max_memory_allocated(dev) - base)
+        diff_launches.append({"forward": fwd, "backward": bwd})
+        # the backward traces each bounce twice: the XLA-style forward, and its recompute under the checkpoint
+        if fwd != {"render": 1} or bwd != {"intersect": 2 * d_spp * d_b}:
+            raise SystemExit(f"render_chunk_diff: launches {diff_launches[-1]}, not one render launch forward and "
+                             f"two intersect launches a sample and bounce backward")
+    # the forward against the plain render at the same seed and shape
+    with torch.no_grad():
+        d_mats = tabulate(dc.replace(cornell.materials, **{k: v.detach() for k, v in leaves.items()}))
+        d_cam = camera_vector(cam256).to(dev)
+        d_tri, d_mat, d_tab, d_leaf = pack_scene_auto(dc.replace(cornell, materials=d_mats), d_cam)
+        if d_leaf is not None:
+            raise SystemExit("render_chunk_diff: Cornell packed into leaves")
+        dpx, dpy = wavefront.chunk_pixels(0, 0, 256, 256, dev)
+        t0 = time.perf_counter()
+        d_plain = render_rays_reference(d_cam, 77, d_tri, d_mat, d_tab, dpx.float(), dpy.float(), d_spp, d_b,
+                                        cam256.image_width).reshape(256, 256, 3)
+        torch.cuda.synchronize()
+        d_plain_s = time.perf_counter() - t0
+    d_err = float((out.detach() - d_plain).abs().max())
+    if not torch.equal(out.detach(), d_plain):
+        raise SystemExit(f"render_chunk_diff: the forward differs from the plain render (max abs {d_err})")
+    if not all(torch.isfinite(g).all() for g in grads) or float(grads[0].abs().max()) <= 0:
+        raise SystemExit("render_chunk_diff: the gradient is not finite and nonzero")
+    log(f"render_chunk_diff: Cornell 256x256, {d_spp} spp, {d_b} bounces, forward + backward {diff_ms} ms, peak "
+        f"memory {[m / 2**20 for m in diff_mem]} MiB above the {base / 2**20:.1f} MiB held before; launches "
+        f"{diff_launches[-1]}; the forward bit-equal to the plain render ({d_plain_s} s); |d/d coeffs| max "
+        f"{float(grads[0].abs().max())}")
+    diff_b2 = {"launches": diff_launches[-1]["forward"]["render"], "max_abs_err": d_err,
+               "forward_and_backward_ms": diff_ms, "plain_s": d_plain_s,
+               "shape": f"Cornell 256x256 px, {d_spp} spp, {d_b} bounces"}
+    del out, grads, d_plain
+
+    # the reparameterized PRISM gradient at inverse_dispersion.py's XLA shape
+    prism = build_scene(PRISM, dev)
+    pcam = scene_camera(PRISM, 32, 32, dev)
+    sb = prism.materials.sellmeier_b.clone().requires_grad_(True)
+    sc = prism.materials.sellmeier_c.clone().requires_grad_(True)
+    pm = dc.replace(prism.materials, sellmeier_b=sb, sellmeier_c=sc)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start.record()
+    pimg = wavefront.render_chunk(dc.replace(prism, materials=pm), pcam, 9, 0, 0, 32, 16, 16, 6, reparam_glass=2)
+    gb, gc = torch.autograd.grad(pimg[..., 1].sum() / 16, [sb, sc])
+    end.record()
+    torch.cuda.synchronize()
+    log(f"PRISM Sellmeier gradient (reparam_glass 2, 32x16 of 32x32, 16 spp, 6 bounces): {start.elapsed_time(end)} "
+        f"ms, peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; d(sum Y)/d B[2] = {gb[2].tolist()}, "
+        f"d/d C[2] = {gc[2].tolist()}")
+    if not (torch.isfinite(gb).all() and torch.isfinite(gc).all()) or float(gb[2].abs().max()) <= 0:
+        raise SystemExit("PRISM Sellmeier gradient: not finite and nonzero")
+
+    # three autograd train steps (examples/inverse_rendering.py's shape)
+    tcam = scene_camera(CORNELL, 32, 32, dev)
+    with torch.no_grad():
+        target = render_image_sharded(cornell, tcam, 0, 8, 4) / 8
+    params = {k: getattr(cornell.materials, k).clone() for k in keys}
+    params["coeffs"][3, 2] += 1.5  # the white wall, as examples/inverse_rendering.py:51
+    losses, step_ms = [], []
+    for _ in range(3):
+        start.record()
+        params, loss = train_step(params, cornell, tcam, target, 0, 8, 4, lr=XLA_TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    log(f"autograd train_step: Cornell 32x32, 8 spp, 4 bounces, lr {XLA_TRAIN_LR}: ms per step {step_ms}, "
+        f"loss {losses}")
+    if not (losses[0] > losses[1] > losses[2]) or not all(torch.isfinite(v).all() for v in params.values()):
+        raise SystemExit("autograd train_step: the loss did not fall")
+
+    # the LBVH walk against the dense selection, same draws
+    field = build_tri_field(10008, 0, device=dev)
+    t0 = time.perf_counter()
+    accel = with_bvh(field, 8)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fcam = scene_camera(CORNELL, FIELD_W, FIELD_H, dev)
+    x0, y0 = (FIELD_W - 64) // 2, (FIELD_H - 32) // 2
+    with torch.no_grad():
+        start.record()
+        walked = wavefront.render_chunk(accel, fcam, 5, x0, y0, 64, 32, 2, 3)
+        end.record()
+        torch.cuda.synchronize()
+        bvh_ms = start.elapsed_time(end)
+        start.record()
+        dense = wavefront.render_chunk(field, fcam, 5, x0, y0, 64, 32, 2, 3)
+        end.record()
+        torch.cuda.synchronize()
+        dense_ms = start.elapsed_time(end)
+    close = float(torch.isclose(walked, dense, rtol=2e-4, atol=1e-5).float().mean())
+    log(f"LBVH: build_tri_field(10008, 0) ({field.num_tris} tris), {accel.bvh.leaf_start.shape[0]} leaves of 8 "
+        f"(built in {build_s} s); 64x32 crop, 2 spp, 3 bounces: walk {bvh_ms} ms, dense {dense_ms} ms; "
+        f"{close:.6f} of values within rtol 2e-4 / atol 1e-5; mean Y {float(dense[..., 1].mean())}")
+    if close <= 0.99 or float(dense.abs().max()) <= 0:
+        raise SystemExit("LBVH render differs from the dense render")
+    del accel, field, walked, dense
+
+    # the parity contract of the kernel and XLA-style renderers
+    parity = {}
+    n, pspp, pb = PARITY_SIZE, PARITY_SPP, PARITY_BOUNCES
+    t0 = time.perf_counter()
+    for sid, sname in ((CORNELL, "cornell"), (PRISM, "prism")):
+        scene = build_scene(sid, dev)
+        pc = scene_camera(sid, n, n, dev)
+        with torch.no_grad():
+            def xla_img(base):
+                acc = 0
+                for i in range(pspp // PARITY_CHUNK):
+                    acc = acc + wavefront.render_chunk(scene, pc, base + i, 0, 0, n, n, PARITY_CHUNK, pb)
+                return (acc / pspp).cpu().numpy()
+
+            x1, x2 = xla_img(100), xla_img(900)
+            p1 = (kernel_chunk(scene, pc, 4242, 0, 0, n, n, pspp, pb) / pspp).cpu().numpy()
+        noise = block_rel(x1, x2)
+        cross = block_rel(p1, 0.5 * (x1 + x2))
+        lum = float(p1[..., 1].mean() / max(0.5 * (x1 + x2)[..., 1].mean(), 1e-9))
+        parity[sname] = {"cross": cross, "noise": noise, "ratio": cross / noise, "lum": lum}
+    log(f"parity contract, {n}x{n}, {pspp} spp, {pb} bounces (kernel vs XLA-style; XLA-style reseeded): {parity}, "
+        f"{time.perf_counter() - t0} s")
+    for sname, v in parity.items():
+        if not (v["ratio"] <= PARITY_RATIO and abs(v["lum"] - 1.0) <= PARITY_LUM):
+            raise SystemExit(f"parity contract broken on {sname}: {v}")
+    return {"launches": launches["intersect"], "render_ms": x_ms, "intersect_ms": b1_ms, "timed_render_ms": timed_ms,
+            "share": b1_ms / timed_ms, "mrays": nominal / x_ms / 1e3, "path_intersect": path_b1, "diff": diff_b2,
+            "diff_ms": diff_ms, "diff_peak_bytes": diff_mem,
+            "lbvh_ms": bvh_ms, "parity": parity}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
@@ -1018,6 +1352,10 @@ def main() -> int:
     if sys.argv[1:] == ["--leaf-sizes"]:
         build.build_all(build.KERNELS.values())
         return leaf_size_sweep(dev)
+    if sys.argv[1:] == ["--xla"]:
+        build.build_all(build.KERNELS.values())
+        print(json.dumps({"xla": xla_phase(dev, smi)}), flush=True)
+        return 0
 
     # ---- 2. build, and the first launch ----------------------------------
     t0 = time.perf_counter()
@@ -1121,7 +1459,7 @@ def main() -> int:
     i_flops = n_rays * tri16.shape[0] * SWEEP_FLOPS_PER_TRI
     i_bytes = 4 * tri16.numel() + n_rays * (24 + 4 + 4 + 1 + 1)
     i_bound, i_by = bound_ms(i_flops, i_bytes)
-    i_issue = intersect_issue_bound(n_rays * tri16.shape[0])
+    i_issue = intersect_issue_bound(n_rays * tri16.shape[0], "ILb0ELb0E")
     log(
         f"  t, idx, hit, front equal ({int(hit.sum())} hits); {n_rays} rays x {tri16.shape[0]} tris: device "
         f"{i_ms} ms a call (queued behind a sleep), host {i_host_us} us a call, back-to-back events {i_b2b_ms} "
@@ -1402,6 +1740,10 @@ def main() -> int:
     del f_target, field, img
     torch.cuda.empty_cache()
 
+    # ---- 12. the XLA-style renderer ----------------------------------------
+    t0 = time.perf_counter()
+    xla = xla_phase(dev, smi)
+    log(f"phase 12: {time.perf_counter() - t0} s")
 
     kernels = [
         {
@@ -1419,6 +1761,7 @@ def main() -> int:
             "library_ms": None,
             "lane_efficiency": render_eff,
             "shape": f"{width}x{height} px, {spp} spp, {bounces} bounces, {n_tris} tris, {live} live ray-steps",
+            "render_chunk_diff": xla["diff"],
         },
         {
             "name": "render_residuals",
@@ -1457,18 +1800,26 @@ def main() -> int:
             "route": "cuda",
             "source": "spectral_tpu_torch/csrc/intersect_kernel.cu",
             "replaces": "spectral_tpu/ops/pallas/intersect_kernel.py:52",
-            "launches": launches["intersect"],
-            "on_main_path": False,
-            "max_abs_err": isect_err,
-            "ms": i_ms,
-            "host_us_per_call": i_host_us,
-            "back_to_back_ms": i_b2b_ms,
-            "plain_ms": i_plain_ms,
-            "bound_ms": i_bound,
-            "bound_by": i_by,
-            "issue_bound": i_issue,
+            "launches": xla["launches"],
+            "path": f"the XLA-style render (render/wavefront.py), Cornell {XLA_W}x{XLA_H}, {XLA_SPP} spp, "
+                    f"{XLA_BOUNCES} bounces: one launch a sample and bounce",
+            "share_of_xla_render": xla["share"],
+            "xla_render_ms": xla["render_ms"],
+            **{k: xla["path_intersect"][k] for k in ("max_abs_err", "ms", "host_us_per_call", "back_to_back_ms",
+                                                     "plain_ms", "bound_ms", "bound_by", "issue_bound")},
             "library_ms": None,
-            "shape": f"{n_rays} rays, {tri16.shape[0]} tris",
+            "shape": xla["path_intersect"]["shape"] + ", intersect_kernel<true,false> (the dots in the XLA order)",
+            "default_order": {
+                "max_abs_err": isect_err,
+                "ms": i_ms,
+                "host_us_per_call": i_host_us,
+                "back_to_back_ms": i_b2b_ms,
+                "plain_ms": i_plain_ms,
+                "bound_ms": i_bound,
+                "bound_by": i_by,
+                "issue_bound": i_issue,
+                "shape": f"{n_rays} random rays, {tri16.shape[0]} tris, intersect_kernel<false,false>",
+            },
         },
         {
             "name": "render_leaves",

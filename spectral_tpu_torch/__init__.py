@@ -20,6 +20,14 @@ residual megakernel and its replay):
     from spectral_tpu_torch.diff import render_chunk_diff_fused, render_rays_diff_fused
     from spectral_tpu_torch.parallel import trainable_params, train_step_fused
 
+The XLA-style wavefront renderer, differentiable by autograd, whose
+nearest hits the dense intersect kernel selects, and the estimators on it:
+
+    from spectral_tpu_torch.render.wavefront import render_chunk, render_tile_xyz, trace_paths
+    from spectral_tpu_torch.diff import render_chunk_diff
+    from spectral_tpu_torch.parallel import render_image_sharded, train_step
+    from spectral_tpu_torch.models.scenes import with_bvh   # the Karras LBVH walk
+
 Entry points take ``device`` and default to ``"cuda"``; without a GPU they
 raise unless the caller passes ``device="cpu"``.
 """

@@ -7,9 +7,13 @@ one-for-one, including the derived values: yres from xres/aspect-ratio
 resolution (params.h:53-63). Like the reference, a malformed flag value is
 tolerated and the default kept (params.h:93-161).
 
-In place of the JAX package's ``--impl auto|pallas|xla`` the port takes
-``--device cuda|cpu`` (default cuda): cuda launches the CUDA kernels and
-fails without a GPU; cpu runs their plain PyTorch versions.
+Beside the JAX package's ``--impl auto|kernel|xla`` (``pallas`` is taken
+as a synonym of ``kernel``, so the JAX package's flag lines run unchanged)
+the port takes ``--device cuda|cpu`` (default cuda): cuda launches the
+CUDA kernels and fails without a GPU; cpu runs their plain PyTorch
+versions. ``auto`` and ``kernel`` render through the render kernels,
+``xla`` through the XLA-style wavefront renderer (render/wavefront.py),
+whose nearest hit is the dense intersect kernel's.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ PRISM = 1
 TRIS = 2
 
 DEVICES = ("cuda", "cpu")
+IMPLS = ("auto", "kernel", "xla")
 
 
 @dataclasses.dataclass
@@ -40,8 +45,10 @@ class RenderParams:
     do_log: bool = False
     show: bool = True
     save: bool = False
-    # extension beyond the reference CLI: where the render runs
+    # extensions beyond the reference CLI: where the render runs, and which
+    # renderer (auto = kernel: the render kernels; xla: render/wavefront.py)
     device: str = "cuda"
+    impl: str = "auto"
     # torch.profiler trace output dir (the reference brackets its render
     # loop with cudaProfilerStart/Stop for Nsight, main.cpp:9,28,57).
     # Empty = off.
@@ -84,7 +91,8 @@ def parse_args(argv: Sequence[str]) -> RenderParams:
     Flags (params.h:240-303): -t/--title, -lsub/--log-subdir, -s/--scene,
     -xr/--xres, -ar/--aspect-ratio, -xc/--xcsize, -yc/--ycsize,
     -ns/--nsamples, -bl/--bounce-limit, --do-log, --no-show, --save; plus
-    --device cuda|cpu and --profile DIR. Unknown flags are ignored, as in
+    --device cuda|cpu, --impl auto|kernel|xla (pallas = kernel) and
+    --profile DIR. Unknown flags are ignored, as in
     the reference's argv loop.
     """
     p = RenderParams()
@@ -128,6 +136,11 @@ def parse_args(argv: Sequence[str]) -> RenderParams:
         elif a == "--device" and val() is not None:
             if val() in DEVICES:
                 p.device = val()
+            i += 1
+        elif a == "--impl" and val() is not None:
+            impl = "kernel" if val() == "pallas" else val()
+            if impl in IMPLS:
+                p.impl = impl
             i += 1
         elif a == "--profile" and val() is not None:
             p.profile_dir = val()

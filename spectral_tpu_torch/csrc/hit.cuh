@@ -35,6 +35,21 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
   return fmaf(a2, b2, fmaf(a0, b0, a1 * b1));
 }
 
+// The same sum in the order of XLA's 3-term reduction or K = 3 matmul, the
+// XLA-style renderer's intersect_block (ops/fp32.py::sum3):
+// fma(a2, b2, fma(a1, b1, a0*b0))
+__device__ __forceinline__ float dot3_xla(float a0, float a1, float a2,
+                                          float b0, float b1, float b2) {
+  return fmaf(a2, b2, fmaf(a1, b1, a0 * b0));
+}
+
+template <bool kXlaOrder>
+__device__ __forceinline__ float dot3_in(float a0, float a1, float a2,
+                                         float b0, float b1, float b2) {
+  return kXlaOrder ? dot3_xla(a0, a1, a2, b0, b1, b2)
+                   : dot3(a0, a1, a2, b0, b1, b2);
+}
+
 struct NearestHit {
   float t;     // distance to the nearest hit, SPT_BIG on a miss
   int idx;     // its triangle, 0 on a miss
@@ -47,20 +62,22 @@ struct NearestHit {
 // nd = n . d out). The tests combine with & rather than &&: every test is
 // computed, in straight-line code, instead of a branch around each later
 // one (the branches and their reconvergence points cost more instructions
-// than the tests they skip).
+// than the tests they skip). kXlaOrder takes the dots in dot3_xla's order
+// (the XLA-style renderer's selection), else in dot3's (the kernels').
+template <bool kXlaOrder = false>
 __device__ __forceinline__ bool tri_hit4(float4 p, float4 g0, float4 g1,
                                          float4 g2, float ox, float oy,
                                          float oz, float dx, float dy,
                                          float dz, float& tt, float& nd) {
-  nd = dot3(p.x, p.y, p.z, dx, dy, dz);
-  const float no = dot3(p.x, p.y, p.z, ox, oy, oz);
+  nd = dot3_in<kXlaOrder>(p.x, p.y, p.z, dx, dy, dz);
+  const float no = dot3_in<kXlaOrder>(p.x, p.y, p.z, ox, oy, oz);
   tt = (p.w - no) / nd;
   bool inside = (fabsf(nd) >= SPT_DENOM_EPS) & (tt >= 0.0f);
   const float4 g[3] = {g0, g1, g2};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float ao = dot3(g[k].x, g[k].y, g[k].z, ox, oy, oz) + g[k].w;
-    const float ad = dot3(g[k].x, g[k].y, g[k].z, dx, dy, dz);
+    const float ao = dot3_in<kXlaOrder>(g[k].x, g[k].y, g[k].z, ox, oy, oz) + g[k].w;
+    const float ad = dot3_in<kXlaOrder>(g[k].x, g[k].y, g[k].z, dx, dy, dz);
     inside = inside & (fmaf(tt, ad, ao) >= 0.0f);
   }
   return inside;

@@ -1,18 +1,21 @@
-"""Differentiable rendering on the port's fused kernels (diff/fast.py).
-
-``render_chunk_diff`` (megakernel forward, XLA wavefront backward) waits
-for the wavefront renderer (ROADMAP A4), and ``diff/geometry.py`` with the
-warp estimators for A10.
+"""Differentiable rendering (diff/fast.py): ``render_chunk_diff`` (the
+render kernel's forward, the XLA-style renderer's backward) and the fused
+residual/replay estimators. ``diff/geometry.py`` and the warp estimators
+wait for ROADMAP A10.
 """
 
 from .fast import (
+    render_chunk_diff,
     render_chunk_diff_fused,
     render_chunk_diff_fused_accum,
     render_rays_diff_fused,
 )
+from .spectral_reparam import reparam_wavelengths
 
 __all__ = [
+    "render_chunk_diff",
     "render_chunk_diff_fused",
     "render_chunk_diff_fused_accum",
     "render_rays_diff_fused",
+    "reparam_wavelengths",
 ]

@@ -1,7 +1,16 @@
-"""Differentiable fused rendering: residual megakernel forward, replay
-backward.
+"""Differentiable rendering on the kernels: the megakernel forward with the
+XLA-style backward, and the fused residual/replay pair.
 
-Port of the fused part of spectral_tpu/diff/fast.py. Both passes are
+Port of spectral_tpu/diff/fast.py. ``render_chunk_diff`` (:95-140) is the
+"cheap value, exact gradient of an estimator" pairing: its forward is the
+render kernel's chunk (ops/cuda/render_kernel.py::render_chunk), and its
+backward is the VJP of the XLA-style wavefront renderer
+(render/wavefront.py::render_chunk) at the same seed, with respect to the
+material leaves. The two are unbiased estimators of the same integral that
+draw different samples; the gradient equals ``torch.autograd.grad`` of the
+XLA-style render. Scene geometry and camera get no gradient.
+
+In the fused pair both passes are
 kernels: the forward is the render megakernel in its residual form
 (ops/cuda/render_kernel.py::render_rays_residuals), which records per
 sample the hero wavelength, n_valid, the final power and the material of
@@ -29,8 +38,7 @@ and ``sched="sorted"``, the default, else the leaf megakernel. The
 residuals come back in original ray order either way, and the replay never
 traces a ray.
 
-Not here yet: ``render_chunk_diff``, whose backward is the XLA wavefront
-estimator (ROADMAP A4), and ``diff/geometry.py`` (A10).
+Not here yet: ``diff/geometry.py`` and the warp estimators (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -40,10 +48,54 @@ import dataclasses
 import torch
 
 from ..models.camera import camera_vector
+from ..models.materials import tabulate
 from ..ops.cuda.grad_kernel import render_grads
-from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_auto, render_rays_residuals
+from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_auto, render_chunk, render_rays_residuals
 from ..ops.cuda.wavefront_kernel import render_rays_wavefront
+from ..render import wavefront
 from .spectral_reparam import reparam_hero
+
+# the material leaves render_chunk_diff differentiates (the float fields of
+# Materials that tabulate reads or the renderer uses)
+DIFF_LEAVES = ("coeffs", "emission_power", "fuzz", "sellmeier_b", "sellmeier_c")
+
+
+def _with_materials(scene, materials):
+    return dataclasses.replace(scene, materials=tabulate(materials))
+
+
+class _ChunkDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, *leaves):
+        materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces = spec
+        mats = dataclasses.replace(materials, **dict(zip(DIFF_LEAVES, leaves)))
+        ctx.spec = spec
+        ctx.save_for_backward(*leaves)
+        return render_chunk(_with_materials(scene, mats), cam, key_seed, x0, y0, width, height, spp, bounces)
+
+    @staticmethod
+    def backward(ctx, g):
+        materials, scene, cam, key_seed, x0, y0, width, height, spp, bounces = ctx.spec
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
+            mats = dataclasses.replace(materials, **dict(zip(DIFF_LEAVES, leaves)))
+            xyz = wavefront.render_chunk(
+                _with_materials(scene, mats), cam, key_seed, x0, y0, width, height, spp, bounces
+            )
+            grads = torch.autograd.grad(xyz, leaves, g, allow_unused=True, materialize_grads=True)
+        return (None, *grads)
+
+
+def render_chunk_diff(materials, scene, cam, key_seed: int, x0: int, y0: int, width: int, height: int,
+                      spp: int, bounces: int) -> torch.Tensor:
+    """Accumulated XYZ [height, width, 3] of a chunk from the render kernel
+    (seeded with ``key_seed``), differentiable with respect to the
+    material leaves DIFF_LEAVES of ``materials``: the backward is the VJP
+    of the XLA-style render_chunk keyed by ``key_seed``
+    (spectral_tpu/diff/fast.py:95-140). ``materials`` replaces
+    ``scene.materials`` (its SPD table is re-tabulated)."""
+    spec = (materials, scene, cam, int(key_seed), x0, y0, width, height, spp, bounces)
+    return _ChunkDiff.apply(spec, *(getattr(materials, k) for k in DIFF_LEAVES))
 
 
 def _residual_forward(cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, image_width, rand,

@@ -1,8 +1,9 @@
 """Reparameterized hero-wavelength sampling: exact Sellmeier gradients.
 
-Port of spectral_tpu/diff/spectral_reparam.py (``reparam_hero`` and its
-helpers; ``reparam_wavelengths`` belongs to the XLA wavefront renderer,
-ROADMAP A4, and waits for it).
+Port of spectral_tpu/diff/spectral_reparam.py: ``reparam_hero`` and its
+helpers, which the fused replay folds (diff/fast.py), and
+``reparam_wavelengths`` (:207), which the XLA-style renderer applies to
+its hero combs (render/wavefront.py, ``reparam_glass``).
 
 With fixed random numbers the path radiance is piecewise constant in the
 Sellmeier coefficients: they enter only through the refractive index at the
@@ -94,3 +95,35 @@ def reparam_hero(
         return l0 + SMAX * torch.tanh(raw * taper * edge / SMAX)
 
     return torch.func.jvp(T, (hero0,), (torch.ones_like(hero0),))
+
+
+def reparam_wavelengths(
+    lam: torch.Tensor,
+    materials,
+    glass_index: int,
+    frozen: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the hero reparameterization to whole wavelength combs
+    (spectral_reparam.py:207).
+
+    lam [N, W]: hero combs (hero at index 0, companions at rigid offsets
+    with wrap); glass_index: the material row of the target glass; frozen:
+    the explicit (b0, c0) target of an FD check (see reparam_hero).
+
+    Returns (lam', weight [N]). The comb shifts rigidly with the hero, by
+    ``hero - hero0``: the actual numeric shift, zero at the primal but not
+    at a displaced (b, c) with an explicit frozen target. (``hero -
+    hero.detach()`` would be zero at every (b, c) and would turn an FD
+    evaluation of the reparameterized estimator into another, weight-only
+    function.) The wrap is re-applied on detached values: the primal comb
+    is already wrapped and the tangent shift is the same on both sides."""
+    b = materials.sellmeier_b[glass_index]
+    c = materials.sellmeier_c[glass_index]
+    hero0 = lam[:, 0]
+    hero, weight = reparam_hero(hero0, b, c, frozen)
+    shift = hero - hero0.detach()
+    span = LAMBDA_MAX - LAMBDA_MIN
+    shifted = lam + shift[:, None]
+    lam_new = torch.where(shifted.detach() > LAMBDA_MAX, shifted - span, shifted)
+    lam_new = torch.where(shifted.detach() < LAMBDA_MIN, lam_new + span, lam_new)
+    return lam_new, weight

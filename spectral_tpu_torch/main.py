@@ -7,7 +7,8 @@ main.cpp:20-40 maps to the preview file); save writes a BMP under
 ``renders/`` like io/save_image.cpp.
 
 Usage: python -m spectral_tpu_torch.main -s 0 -xr 600 -ns 500 -bl 10 --save --no-show
-       (add --device cpu to run the plain PyTorch versions on the host)
+       (add --device cpu to run the plain PyTorch versions on the host, and
+       --impl xla to render through the XLA-style wavefront renderer)
 """
 
 from __future__ import annotations

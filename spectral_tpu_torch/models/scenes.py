@@ -8,9 +8,11 @@ cameras replicate scene.cu:259-320.
 The build runs on the host (numpy geometry, float32 torch for the material
 spectra) and the finished arrays move to the device in one step, so a scene
 is the same on every device. ``scene_from_numpy`` is that step on its own:
-given the JAX package's Scene arrays under the same names, it carries them
-into the port unchanged; ``params_from_numpy`` does the same for the
-trainable material leaves.
+given the JAX package's Scene arrays under the same names (and its LBVH
+tables, when the JAX scene has one), it carries them into the port
+unchanged; ``params_from_numpy`` does the same for the trainable material
+leaves. ``with_bvh`` attaches a Karras LBVH (ops/bvh.py) that the XLA-style
+renderer walks instead of its dense nearest hit.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ class Scene:
     bbox_max: torch.Tensor  # [T, 3]
     materials: Materials
     background_spd: torch.Tensor  # [95]
+    # an LBVH (ops/bvh.py): the XLA-style renderer walks it instead of the
+    # dense nearest hit when set (with_bvh); the render kernels ignore it
+    bvh: object = None
 
     @property
     def num_tris(self) -> int:
@@ -75,12 +80,25 @@ def _tensor(x, device) -> torch.Tensor:
     return t.to(device)
 
 
+_BVH_TABLES = ("node_min", "node_max", "left", "right", "leaf_start", "order")
+
+
 def scene_from_numpy(d: dict, device: torch.device | str = "cuda") -> Scene:
     """A Scene from its arrays under the JAX Scene's field names:
     ``d["materials"]`` holds the Materials fields, every other key a
-    triangle field or ``background_spd``. Float arrays become float32 and
-    integer arrays int32 tensors on ``device``."""
+    triangle field or ``background_spd``, and ``d["bvh"]``, when present,
+    the LBVH's tables under the JAX LBVH's names with its ``leaf_size`` and
+    ``n_tris``. Float arrays become float32 and integer arrays int32
+    tensors on ``device`` (the LBVH's index tables int64)."""
     device = resolve_device(device)
+    bvh = None
+    if d.get("bvh") is not None:
+        from ..ops.bvh import LBVH
+
+        b = d["bvh"]
+        tables = {k: _tensor(b[k], device) for k in _BVH_TABLES}
+        tables.update({k: v.long() for k, v in tables.items() if not v.is_floating_point()})
+        bvh = LBVH(**tables, leaf_size=int(b["leaf_size"]), n_tris=int(b["n_tris"]))
     mats = Materials(
         **{
             f.name: _tensor(d["materials"][f.name], device)
@@ -91,7 +109,17 @@ def scene_from_numpy(d: dict, device: torch.device | str = "cuda") -> Scene:
         **{k: _tensor(d[k], device) for k in _TRI_FIELDS},
         materials=mats,
         background_spd=_tensor(d["background_spd"], device),
+        bvh=bvh,
     )
+
+
+def with_bvh(scene: Scene, leaf_size: int = 8) -> Scene:
+    """The scene with a Karras LBVH attached (scenes.py:275): the XLA-style
+    renderer then walks it instead of the dense nearest hit (worth it above
+    O(128) triangles)."""
+    from ..ops.bvh import build_lbvh
+
+    return dataclasses.replace(scene, bvh=build_lbvh(scene.bbox_min, scene.bbox_max, leaf_size))
 
 
 def params_from_numpy(d: dict, device: torch.device | str = "cuda") -> dict:

@@ -1,5 +1,5 @@
-"""CIE XYZ -> sRGB conversion, gamma and quantization: the part of
-spectral_tpu/ops/color.py the framebuffer needs (reference color/color.cu).
+"""sRGB <-> CIE XYZ conversion, gamma and quantization (port of
+spectral_tpu/ops/color.py; reference color/color.cu).
 
 All functions take tensors shaped [..., 3] and broadcast over leading axes.
 The 3x3 products are written out per component rather than as a matmul, so
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.constants import d65_xyz_to_srgb
+from ..utils.constants import d65_srgb_to_xyz, d65_xyz_to_srgb
 
 
 def _mat3(m, v: torch.Tensor) -> torch.Tensor:
@@ -20,6 +20,18 @@ def _mat3(m, v: torch.Tensor) -> torch.Tensor:
         for i in range(3)
     ]
     return torch.stack(rows, dim=-1)
+
+
+def srgb_gamma_expand(v: torch.Tensor) -> torch.Tensor:
+    """Inverse sRGB gamma, encoded -> linear (color.cu:8-13)."""
+    powseg = torch.pow(torch.clamp_min((v + 0.055) / 1.055, 0.0), 2.4)
+    return torch.where(v < 0.04045, v / 12.92, powseg)
+
+
+def srgb_to_xyz(srgb: torch.Tensor, matrix=None) -> torch.Tensor:
+    """Encoded sRGB [..., 3] -> XYZ [..., 3] (color.cu:24-33)."""
+    m = d65_srgb_to_xyz if matrix is None else matrix
+    return _mat3(m, srgb_gamma_expand(srgb))
 
 
 def srgb_gamma_compress(v: torch.Tensor) -> torch.Tensor:

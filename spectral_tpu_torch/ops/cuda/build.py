@@ -150,7 +150,7 @@ def build_all(kernels) -> None:
 
 INTERSECT = Kernel(
     "intersect", "intersect_kernel.cu", "intersect_launch",
-    [P, I, P, P, I, P, P, P, P, P],
+    [P, I, P, P, I, I, P, P, P, P, P],
 )
 RENDER = Kernel(
     "render", "render_kernel.cu", "render_launch",

@@ -23,6 +23,14 @@ cos are the C library's sinf and cosf, from which torch's CPU sin and cos
 differ by 1 ulp on ~5% of [0, 2 pi). Only the last flips paths (a
 scattered direction's last bit decides whether a PRISM path finds the
 light), so ``sin`` and ``cos`` below call the C library on the CPU.
+
+The XLA-style renderer (render/wavefront.py) is another XLA program, of
+[N, 3] vector expressions rather than the Pallas kernel's scalar ones. Its
+fusions follow the same rule (read in the LLVM IR XLA's CPU backend emits:
+a product with no other use feeding a sum or difference is fused, the left
+operand first; ``p - q * r`` becomes fma(-q, r, p)); a 3-term reduction of
+products (a sum over the last axis, or a K = 3 matmul) is ``sum3``; and
+its square root is correctly rounded (``sqrt``).
 """
 
 from __future__ import annotations
@@ -78,3 +86,23 @@ def sin(x: torch.Tensor) -> torch.Tensor:
 def cos(x: torch.Tensor) -> torch.Tensor:
     """float32 cosine, as ``sin``: the C library's cosf on the CPU."""
     return _c_float("cosf", x) if x.device.type == "cpu" else torch.cos(x)
+
+
+def dot3_xla(a0, a1, a2, b0, b1, b2) -> torch.Tensor:
+    """``a0*b0 + a1*b1 + a2*b2`` as XLA's CPU backend computes a 3-term
+    reduction of products or a K = 3 matmul: fma(a2, b2, fma(a1, b1, a0*b0))
+    (csrc/hit.cuh::dot3_xla)."""
+    return fma(a2, b2, fma(a1, b1, a0 * b0))
+
+
+def sum3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum(a * b, axis=-1)`` over a last axis of 3, ``dot3_xla`` of the
+    components."""
+    return dot3_xla(a[..., 0], a[..., 1], a[..., 2], b[..., 0], b[..., 1], b[..., 2])
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA's CPU backend and
+    CUDA's sqrtf compute it: through float64 on the CPU (a float64 root of
+    a float32 value rounds once more without error), torch's elsewhere."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype) if x.device.type == "cpu" else torch.sqrt(x)

@@ -23,13 +23,26 @@ leaf groups (``leaf_groups``; render_kernel.py:1470-1660, :2921-2958),
 whose boxes gate their members' tests the same way. Ties go to the lower
 original triangle index, so it returns what ``nearest_hit`` returns on the
 unsorted scene.
+
+The scene-level half of spectral_tpu/ops/intersect.py serves the
+XLA-style renderer (render/wavefront.py): ``HitRecord`` (:39),
+``intersect_block`` (:51), ``nearest_hit_scene`` (the scene form of
+``nearest_hit`` :92) with ``gather_record`` (:111), and ``ray_aabb``
+(:143). Its gradient policy is the JAX module's: the selection (index and
+hit mask) is discrete and detached, and the selected triangle's t, point
+and normal are recomputed from it as smooth functions of the ray and the
+scene. The selection is the dense intersect kernel's
+(ops/cuda/intersect_kernel.py::intersect), or on the CPU its plain version
+``nearest_hit``; the recomputation follows XLA's arithmetic (ops/fp32.py).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .fp32 import dot3, fma
+from .fp32 import dot3, dot3_xla, fma, sum3
 
 # Ray-parallel-to-plane threshold (reference tri.cu:15)
 DENOM_EPS = 1e-8
@@ -54,14 +67,16 @@ _PAIR_CHUNK = 1 << 16
 _NO_IDX = torch.iinfo(torch.int32).max
 
 
-def nearest_hit(o: torch.Tensor, d: torch.Tensor, tri_pack: torch.Tensor):
+def nearest_hit(o: torch.Tensor, d: torch.Tensor, tri_pack: torch.Tensor, xla: bool = False):
     """Nearest hit of rays ``o, d`` [N, 3] over ``tri_pack`` [T, >=16]
     (normal 0:3, plane offset 3, edge_g 4:13, edge_c 13:16).
 
     Returns (t [N] f32, BIG on a miss; idx [N] int32, 0 on a miss;
     hit [N] bool; front [N] bool: the ray meets the triangle's front face),
-    the outputs of the reference's intersect kernel."""
-    tt, valid, nd = _tri_test(o, d, tri_pack)
+    the outputs of the reference's intersect kernel. ``xla``: the dots in
+    the order of the XLA-style renderer's ``intersect_block``
+    (ops/fp32.py::sum3), so that the selection is its argmin's."""
+    tt, valid, nd = _tri_test(o, d, tri_pack, dot3_xla if xla else dot3)
     t_masked = torch.where(valid, tt, torch.full_like(tt, BIG))
     idx = torch.argmin(t_masked, dim=1, keepdim=True)
     hit = valid.any(dim=1)
@@ -71,23 +86,23 @@ def nearest_hit(o: torch.Tensor, d: torch.Tensor, tri_pack: torch.Tensor):
     return t, idx, hit, front
 
 
-def _tri_test(o, d, tri_pack):
+def _tri_test(o, d, tri_pack, dot=dot3):
     """(tt, valid, nd) of the rays o, d [N, 3] against the rows of
     ``tri_pack``: [N, T] for a [T, C] table, or [N, K] for [N, K, C] (ray i
     against its own K rows). The plane distance, the full acceptance test
-    and n . d."""
+    and n . d, the dots taken by ``dot``."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     col = lambda k: tri_pack[..., k]  # noqa: E731  [T] or [N, K], broadcast against [N, 1]
     nx, ny, nz, dd = col(0), col(1), col(2), col(3)
-    nd = dot3(nx, ny, nz, dx, dy, dz)
-    no = dot3(nx, ny, nz, ox, oy, oz)
+    nd = dot(nx, ny, nz, dx, dy, dz)
+    no = dot(nx, ny, nz, ox, oy, oz)
     tt = (dd - no) / nd
     inside = torch.ones_like(tt, dtype=torch.bool)
     for k in range(3):
         g0, g1, g2, c = col(4 + 3 * k), col(5 + 3 * k), col(6 + 3 * k), col(13 + k)
-        ao = dot3(g0, g1, g2, ox, oy, oz) + c
-        ad = dot3(g0, g1, g2, dx, dy, dz)
+        ao = dot(g0, g1, g2, ox, oy, oz) + c
+        ad = dot(g0, g1, g2, dx, dy, dz)
         inside = inside & (fma(tt, ad, ao) >= 0.0)
     return tt, inside & (nd.abs() >= DENOM_EPS) & (tt >= 0.0) & (tt < BIG), nd
 
@@ -308,3 +323,95 @@ def nearest_hit_leaves(o, d, tri_pack, leaf_pack, alive=None, visits=None, group
     hit = best_idx != _NO_IDX
     idx = torch.where(hit, best_idx, torch.zeros_like(best_idx))
     return best_t, idx, hit, hit & (best_nd < 0.0), best_row
+
+
+class HitRecord(NamedTuple):
+    """SoA hit record (reference primitives/hit_record.cuh:13-45)."""
+
+    t: torch.Tensor  # [N] hit distance (BIG on a miss)
+    hit: torch.Tensor  # [N] bool
+    p: torch.Tensor  # [N, 3] hit point (0 on a miss)
+    normal: torch.Tensor  # [N, 3] normal, flipped to face the ray
+    front_face: torch.Tensor  # [N] bool
+    mat_index: torch.Tensor  # [N] int64
+    tri_index: torch.Tensor  # [N] int64 (-1 on a miss)
+
+
+def intersect_block(o, d, v_normal, v_d, edge_g, edge_c, t_min: float = 0.0, t_max: float = BIG):
+    """All-pairs candidate test, rays [N] x triangles [T] -> (t_all [N, T],
+    valid [N, T]): the plane hit lies in [t_min, t_max], inside all three
+    edges, and the ray is not parallel to the plane (intersect.py:51).
+    o, d [N, 3]; v_normal [T, 3]; v_d [T]; edge_g [T, 3, 3]; edge_c [T, 3].
+    Its products are XLA's K = 3 matmuls (ops/fp32.py::sum3)."""
+    o3, d3 = o[:, None, :], d[:, None, :]
+    no = sum3(o3, v_normal[None])
+    nd = sum3(d3, v_normal[None])
+    t_all = (v_d[None, :] - no) / nd
+    ao = sum3(o3[:, :, None, :], edge_g[None]) + edge_c[None]
+    ad = sum3(d3[:, :, None, :], edge_g[None])
+    inside = (fma(t_all[..., None], ad, ao) >= 0.0).all(dim=-1)
+    valid = inside & (nd.abs() >= DENOM_EPS) & (t_all >= t_min) & (t_all <= t_max)
+    return t_all, valid
+
+
+def gather_record(o, d, scene, idx, hit) -> HitRecord:
+    """The hit record of the selected triangles ``idx`` [N] (hit [N] bool),
+    op for op as intersect.py:111 ``_gather_record``. t is recomputed from
+    the selected plane, so gradients flow through it alone; the selection
+    is detached. The point comes from the miss-zeroed t, not the
+    BIG-masked one: BIG * d would give inf in the backward, and 0 * inf
+    NaN."""
+    idx = idx.detach().long()
+    hit = hit.detach()
+    n_sel = scene.normal[idx]
+    d_sel = scene.d[idx]
+    nd = sum3(n_sel, d)
+    no = sum3(n_sel, o)
+    t = (d_sel - no) / torch.where(nd.abs() < DENOM_EPS, torch.full_like(nd, DENOM_EPS), nd)
+    p = fma(torch.where(hit, t, torch.zeros_like(t))[:, None], d, o)
+    t = torch.where(hit, t, torch.full_like(t, BIG))
+    # set_face_normal (hit_record.cuh:30-45): flip toward the ray origin
+    front = nd < 0.0
+    normal = torch.where(front[:, None], n_sel, -n_sel)
+    return HitRecord(
+        t=t,
+        hit=hit,
+        p=torch.where(hit[:, None], p, torch.zeros_like(p)),
+        normal=normal,
+        front_face=front,
+        mat_index=scene.mat_index[idx].long(),
+        tri_index=torch.where(hit, idx, torch.full_like(idx, -1)),
+    )
+
+
+def nearest_hit_scene(o, d, scene, tri_pack=None, select=None) -> HitRecord:
+    """Dense nearest hit over the whole scene, the scene form of
+    intersect.py:92 ``nearest_hit``. The selection is ``select(o, d,
+    tri_pack)`` -> (t, idx, hit, front), by default the dense intersect
+    kernel (ops/cuda/intersect_kernel.py::intersect: the CUDA kernel on
+    CUDA tensors, ``nearest_hit`` on the CPU), run without autograd on
+    ``tri_pack`` (its ``pack_tris`` of the scene when not given); the
+    record is ``gather_record`` of it. The kernel takes its dots in the
+    order of the JAX renderer's intersect_block (``xla=True``): in the
+    other order a refracted ray re-hits its entry face at t = 0 where JAX's
+    finds t < 0 (ROADMAP C6)."""
+    from .cuda.intersect_kernel import intersect, pack_tris
+
+    with torch.no_grad():
+        if tri_pack is None:
+            tri_pack = pack_tris(scene)
+        if select is None:
+            _, idx, hit, _ = intersect(o.detach(), d.detach(), tri_pack, xla=True)
+        else:
+            _, idx, hit, _ = select(o.detach(), d.detach(), tri_pack)
+    return gather_record(o, d, scene, idx, hit)
+
+
+def ray_aabb(o, inv_d, bb_min, bb_max, t_min: float = 0.0, t_max: float = BIG):
+    """Slab test, rays [N] x boxes [B] -> bool [N, B], with aabb::hit's
+    strict ``max <= min -> miss`` (bvh/aabb.cu:7-40; intersect.py:143)."""
+    lo = (bb_min[None] - o[:, None]) * inv_d[:, None]
+    hi = (bb_max[None] - o[:, None]) * inv_d[:, None]
+    near = torch.clamp_min(torch.minimum(lo, hi).amax(dim=-1), t_min)
+    far = torch.clamp_max(torch.maximum(lo, hi).amin(dim=-1), t_max)
+    return near < far

@@ -1,5 +1,6 @@
-"""Inverse rendering on the port's fused kernels (one device)."""
+"""Rendering and inverse rendering on one device (the XLA-style renderer
+and the fused kernels)."""
 
-from .render import apply_params, train_step_fused, trainable_params
+from .render import apply_params, render_image_sharded, train_step, train_step_fused, trainable_params
 
-__all__ = ["apply_params", "train_step_fused", "trainable_params"]
+__all__ = ["apply_params", "render_image_sharded", "train_step", "train_step_fused", "trainable_params"]

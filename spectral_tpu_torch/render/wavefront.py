@@ -1,16 +1,210 @@
-"""Framebuffer conversion of the renderer (port of the ``xyz_to_image`` part
-of spectral_tpu/render/wavefront.py).
+"""The XLA-style wavefront spectral path tracer, and the framebuffer
+conversion.
 
-The XLA wavefront renderer itself (trace_paths, render_tile_xyz,
-render_chunk with autograd) is a later slice (ROADMAP A4); this slice
-renders through the megakernel (ops/cuda/render_kernel.py).
+Port of spectral_tpu/render/wavefront.py. Where the render kernels
+(ops/cuda/render_kernel.py) give each thread a whole path, this renderer
+advances a batch of rays in lock step,
+
+    generate -> [ nearest hit -> shade ] x bounce_limit -> integrate,
+
+each stage a batched tensor operation, with the samples as an outer loop
+that sums XYZ. It is differentiable by autograd end to end: the
+estimators of diff/fast.py (``render_chunk_diff``) and the one-device
+``parallel.train_step`` differentiate it. The nearest hit of every bounce
+is the dense intersect kernel's selection (ops/intersect.py::
+nearest_hit_scene), or with ``scene.bvh`` set the Karras LBVH walk
+(ops/bvh.py::nearest_hit_bvh), as at wavefront.py:82-90.
+
+Draws. A render is a pure function of (key, sample, bounce): by default
+each sample and bounce draws from a generator seeded with
+``utils/prng.py::fold`` of its counters (``GeneratorDraws``). The JAX
+renderer draws from its own key schedule; ``render_tile_xyz`` takes any
+object with the same three methods instead (``draws``), so that a test can
+hand it the JAX draws and compare the two path for path.
+
+Under autograd each bounce runs inside ``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint(bounce)`` (wavefront.py:107-115): the
+backward recomputes the bounce instead of keeping its activations, which
+at 256x256, 16 spp and 8 bounces would not fit. The bounce's draws are
+made before the checkpointed function and passed in, so the recompute
+sees the same numbers (a generator read inside it would be advanced again
+and the backward would trace other paths).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..models.camera import Camera, generate_rays
 from ..ops.color import to_uint8, xyz_to_srgb
+from ..ops.intersect import nearest_hit_scene
+from ..ops.shading import WARPS_MISSING, RayState, scatter_step
+from ..ops.spectrum import hero_wavelengths, spectrum_to_xyz
+from ..utils.constants import N_RAY_WAVELENGTHS
+from ..utils.prng import fold, generator, random_in_unit_disk, random_unit_vectors
+
+# site counters of GeneratorDraws, folded after the sample
+_CAMERA, _HERO, _BOUNCE = 0, 1, 2
+
+
+class GeneratorDraws:
+    """The draws of ``n`` rays keyed by ``key``: sample s's camera and hero
+    draws come from ``generator(fold(key, s, site))`` and bounce b's from
+    ``generator(fold(key, s, _BOUNCE, b))`` on ``device``.
+
+    ``camera(s)`` -> (jitter [N, 2] uniforms, disk [N, 2] or None);
+    ``hero(s)`` -> hero uniforms [N]; ``bounce(s, b)`` -> (u1, u2 [N, 3]
+    unit vectors, u_refl [N] uniforms)."""
+
+    def __init__(self, key: int, n: int, device, defocus: bool = False):
+        self.key, self.n, self.device, self.defocus = key, n, torch.device(device), defocus
+
+    def _gen(self, *counters) -> torch.Generator:
+        return generator(fold(self.key, *counters), self.device)
+
+    def camera(self, s: int):
+        gen = self._gen(s, _CAMERA)
+        jitter = torch.rand((self.n, 2), generator=gen, device=self.device)
+        return jitter, random_in_unit_disk(gen, (self.n,)) if self.defocus else None
+
+    def hero(self, s: int) -> torch.Tensor:
+        return torch.rand(self.n, generator=self._gen(s, _HERO), device=self.device)
+
+    def bounce(self, s: int, b: int):
+        gen = self._gen(s, _BOUNCE, b)
+        u1 = random_unit_vectors(gen, (self.n,))
+        u2 = random_unit_vectors(gen, (self.n,))
+        return u1, u2, torch.rand(self.n, generator=gen, device=self.device)
+
+
+def _bounce(scene, tri_pack, select, o, d, wavelengths, power, n_valid, alive, u1, u2, u_refl):
+    state = RayState(o, d, wavelengths, power, n_valid, alive)
+    if getattr(scene, "bvh", None) is not None:
+        from ..ops.bvh import nearest_hit_bvh
+
+        rec = nearest_hit_bvh(o, d, scene, scene.bvh)
+    else:
+        rec = nearest_hit_scene(o, d, scene, tri_pack, select)
+    return tuple(scatter_step(state, rec, scene.materials, scene.background_spd, u1, u2, u_refl))
+
+
+def trace_paths(scene, o, d, wavelengths, bounce_draws, bounce_limit: int, vertex_warp=None, fuzz_warp=None,
+                select=None) -> RayState:
+    """Trace a batch of rays to termination (renderer::ray_bounce,
+    rendering.cu:12-40; wavefront.py:57). ``bounce_draws(b)`` gives bounce
+    b's (u1, u2, u_refl); ``select`` overrides the dense selection
+    (ops/intersect.py::nearest_hit_scene). Paths still alive after the
+    last bounce contribute nothing (rendering.cu:38-39)."""
+    if vertex_warp is not None or fuzz_warp is not None:
+        raise NotImplementedError(f"vertex_warp and fuzz_warp: {WARPS_MISSING}")
+    from ..ops.cuda.intersect_kernel import pack_tris
+
+    n, w = wavelengths.shape
+    dev = o.device
+    state = (
+        o, d, wavelengths, torch.ones((n, w), dtype=torch.float32, device=dev),
+        torch.full((n,), w, dtype=torch.int64, device=dev), torch.ones(n, dtype=torch.bool, device=dev),
+    )
+    tri_pack = None
+    if getattr(scene, "bvh", None) is None:
+        with torch.no_grad():
+            tri_pack = pack_tris(scene)
+    for b in range(bounce_limit):
+        draws = bounce_draws(b)
+        if torch.is_grad_enabled():
+            state = checkpoint(_bounce, scene, tri_pack, select, *state, *draws, use_reentrant=False)
+        else:
+            state = _bounce(scene, tri_pack, select, *state, *draws)
+    state = RayState(*state)
+    return state._replace(n_valid=torch.where(state.alive, torch.zeros_like(state.n_valid), state.n_valid))
+
+
+def render_tile_xyz(
+    scene,
+    cam: Camera,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    key: int,
+    samples_per_pixel: int,
+    bounce_limit: int,
+    reparam_glass: int | None = None,
+    reparam_frozen: tuple[torch.Tensor, torch.Tensor] | None = None,
+    vertex_warp=None,
+    fuzz_warp=None,
+    draws=None,
+    select=None,
+) -> torch.Tensor:
+    """Accumulated (not averaged) XYZ [N, 3] of the pixels px, py [N]
+    (the sample loop of spectral_render_kernel, rendering.cu:215-228;
+    wavefront.py:146).
+
+    ``reparam_glass``: the material row of a dispersive dielectric whose
+    Sellmeier B/C get exact gradients through the hero-wavelength change of
+    variables (diff/spectral_reparam.py; primal values unchanged);
+    ``reparam_frozen``: its explicit (b0, c0) target, for FD checks.
+    ``draws``: the draws (``GeneratorDraws``' methods; default
+    ``GeneratorDraws(key, N, ...)``). ``select``: see ``trace_paths``."""
+    if vertex_warp is not None or fuzz_warp is not None:
+        raise NotImplementedError(f"vertex_warp and fuzz_warp: {WARPS_MISSING}")
+    n = px.shape[0]
+    if draws is None:
+        draws = GeneratorDraws(key, n, px.device, cam.defocus_angle > 0.0)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
+    for s in range(samples_per_pixel):
+        jitter, disk = draws.camera(s)
+        o, d = generate_rays(cam, px, py, jitter, disk)
+        lam = hero_wavelengths(draws.hero(s), n_lambdas=N_RAY_WAVELENGTHS)
+        jac = None
+        if reparam_glass is not None:
+            from ..diff.spectral_reparam import reparam_wavelengths
+
+            lam, jac = reparam_wavelengths(lam, scene.materials, reparam_glass, reparam_frozen)
+        state = trace_paths(scene, o, d, lam, lambda b, s=s: draws.bounce(s, b), bounce_limit, select=select)
+        xyz = spectrum_to_xyz(state.wavelengths, state.power, state.n_valid)
+        if jac is not None:
+            xyz = xyz * jac[:, None]
+        acc = acc + xyz
+    return acc
+
+
+def chunk_pixels(x0: int, y0: int, width: int, height: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major integer pixel coordinates (px, py) [height * width] of a
+    chunk."""
+    ys, xs = torch.meshgrid(
+        torch.arange(y0, y0 + height, device=device),
+        torch.arange(x0, x0 + width, device=device),
+        indexing="ij",
+    )
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def render_chunk(
+    scene,
+    cam: Camera,
+    key: int,
+    x0: int,
+    y0: int,
+    width: int,
+    height: int,
+    samples_per_pixel: int,
+    bounce_limit: int,
+    reparam_glass: int | None = None,
+    reparam_frozen: tuple[torch.Tensor, torch.Tensor] | None = None,
+    vertex_warp=None,
+    fuzz_warp=None,
+    draws=None,
+    select=None,
+) -> torch.Tensor:
+    """Accumulated XYZ [height, width, 3] of a chunk, on the scene's device
+    (wavefront.py:220). The chunk is the reference's tile
+    (render_manager.cu:3-66). The arguments are ``render_tile_xyz``'s."""
+    px, py = chunk_pixels(x0, y0, width, height, scene.normal.device)
+    xyz = render_tile_xyz(
+        scene, cam, px, py, key, samples_per_pixel, bounce_limit, reparam_glass, reparam_frozen,
+        vertex_warp, fuzz_warp, draws, select,
+    )
+    return xyz.reshape(height, width, 3)
 
 
 def xyz_to_image(xyz_sum: torch.Tensor, samples_per_pixel: int) -> torch.Tensor:

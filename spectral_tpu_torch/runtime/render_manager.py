@@ -7,8 +7,11 @@ device's current stream, so the reference's worker thread + semaphores
 become "launch chunk k+1 before copying chunk k to the host": the device
 renders the next chunk while the host consumes the last.
 
-Each chunk is one launch of the megakernel, seeded as the JAX megakernel
-path seeds it (render_manager.py:121).
+With ``--impl auto`` or ``kernel`` each chunk is one render through the
+kernels (ops/cuda/render_kernel.py::render_chunk), seeded as the JAX
+megakernel path seeds it (render_manager.py:121); with ``--impl xla`` it is
+the XLA-style renderer's chunk (render/wavefront.py::render_chunk) keyed by
+``fold(key, y0 * W + x0)``, as the JAX manager keys it (:127-130).
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import torch
 from ..config import RenderParams
 from ..models.camera import Camera
 from ..ops.cuda.render_kernel import render_chunk
+from ..render import wavefront
 from ..render.wavefront import xyz_to_image
 from ..utils.logging import LogContext
+from ..utils.prng import fold
 
 
 def chunk_seed(x0: int, y0: int, image_width: int) -> int:
@@ -74,6 +79,7 @@ class RenderManager:
         self,
         on_chunk: Callable[[ChunkResult, np.ndarray], None] | None = None,
         checkpoint: str | None = None,
+        key: int = 1984,
     ) -> np.ndarray:
         """Render all chunks with a 2-deep launch pipeline; returns the
         uint8 sRGB image. ``on_chunk`` receives each finished chunk plus the
@@ -82,7 +88,9 @@ class RenderManager:
 
         ``checkpoint``: path to a .npz tile checkpoint. Completed chunks
         are persisted after each consume and skipped on restart; a chunk is
-        a pure function of (scene, camera, chunk), so resume is exact.
+        a pure function of (scene, camera, chunk, key), so resume is exact.
+        ``key``: the XLA-style renderer's root key (the JAX CLI's
+        PRNGKey(1984)); the kernels seed each chunk from its position.
         """
         p = self.params
         t0 = time.perf_counter()
@@ -104,10 +112,17 @@ class RenderManager:
                 os.replace(tmp, checkpoint)
 
         def launch(x0, y0, w, h) -> ChunkResult:
-            seed = chunk_seed(x0, y0, self.cam.image_width)
-            xyz = render_chunk(
-                self.scene, self.cam, seed, x0, y0, w, h, p.nsamples, p.bounce_limit
-            )
+            if p.impl == "xla":
+                with torch.no_grad():
+                    xyz = wavefront.render_chunk(
+                        self.scene, self.cam, fold(key, y0 * self.cam.image_width + x0), x0, y0, w, h,
+                        p.nsamples, p.bounce_limit,
+                    )
+            else:
+                seed = chunk_seed(x0, y0, self.cam.image_width)
+                xyz = render_chunk(
+                    self.scene, self.cam, seed, x0, y0, w, h, p.nsamples, p.bounce_limit
+                )
             return ChunkResult(x0, y0, w, h, xyz)
 
         grid = [c for c in self.chunks() if (c[0], c[1]) not in done]
@@ -128,6 +143,7 @@ class RenderManager:
             self.log.add_entry("chunks", len(grid))
             self.log.add_entry("samples per pixel", p.nsamples)
             self.log.add_entry("bounce limit", p.bounce_limit)
+            self.log.add_entry("renderer", "xla" if p.impl == "xla" else "kernel")
             self.log.add_entry(
                 "resolution", f"{self.cam.image_width}x{self.cam.image_height}"
             )

@@ -17,6 +17,10 @@ The large-scene kernels (the leaf megakernel, forward and residual, and
 the sorted scheduler's three kernels) run on build_tri_field(520, seed=3,
 glass=True) against their plain versions, and against each other: the
 two schedulers share one source of path arithmetic and give equal paths.
+The intersect kernel takes any number of triangles, in tiles, and the
+XLA-style renderer's dot order; that renderer selects its nearest hits
+with it, and its render equals the one whose selection is the plain
+version's.
 """
 
 from __future__ import annotations
@@ -77,10 +81,10 @@ def test_intersect_kernel_equals_plain(cuda_device):
 
 def _tri_pack(n_tris: int, dev) -> torch.Tensor:
     """n_tris packed triangles: CORNELL's first ones, or past its 42 a
-    1008-triangle field's first ones."""
+    1008-triangle field's first ones (a larger field's past 1008)."""
     if n_tris <= 42:
         return pack_tris(build_scene(CORNELL, dev))[:n_tris].contiguous()
-    field = pack_tris(build_tri_field(1000, seed=3, device=dev))
+    field = pack_tris(build_tri_field(max(1000, n_tris), seed=3, device=dev))
     return field[:n_tris].contiguous()
 
 
@@ -90,7 +94,7 @@ def _tri_pack(n_tris: int, dev) -> torch.Tensor:
 def test_intersect_kernel_shapes_bit_equal(cuda_device, n, n_tris):
     """Every output of the intersect kernel equal to the plain version's, at
     ray counts around a block's rays and at the default frame's, and from
-    one triangle to the most the kernel takes."""
+    one triangle to a whole tile of the pack (MAX_TRIS)."""
     rng = np.random.default_rng(n + n_tris)
     o = rng.uniform([20.0, 20.0, -400.0], [535.0, 535.0, 535.0], (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
@@ -106,6 +110,80 @@ def test_intersect_kernel_shapes_bit_equal(cuda_device, n, n_tris):
         assert torch.equal(a, b)
     if n > 1:
         assert ref[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", (MAX_TRIS + 1, 2000))
+@pytest.mark.parametrize("n", (1, 129, 65_536))
+def test_intersect_kernel_tiles_bit_equal(cuda_device, n, n_tris):
+    """Past one tile (769 and 2,000 triangles: the pack streams through
+    shared memory in tiles of MAX_TRIS), every output equal to the plain
+    version's. (The plain version's [N, T] float64 tensors bound N here.)"""
+    rng = np.random.default_rng(n + n_tris)
+    o = rng.uniform([20.0, 20.0, -400.0], [535.0, 535.0, 535.0], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    tri = _tri_pack(n_tris, cuda_device)
+    assert tri.shape[0] == n_tris
+    before = build.INTERSECT.launches
+    got = intersect(o, d, tri)
+    torch.cuda.synchronize()
+    assert build.INTERSECT.launches == before + 1
+    ref = nearest_hit(o, d, tri)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    if n > 1:
+        assert ref[2].any()
+    if n >= 65_536:
+        assert (ref[1] >= MAX_TRIS).any()  # hits past the first tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", (42, MAX_TRIS + 1, 2000))
+@pytest.mark.parametrize("n", (129, 65_536))
+def test_intersect_kernel_xla_order_bit_equal(cuda_device, n, n_tris):
+    """The kernel with the XLA-style renderer's dot order (xla=True) equal
+    to the plain version in that order, over one tile and several."""
+    rng = np.random.default_rng(n + 7 * n_tris)
+    o = rng.uniform([20.0, 20.0, -400.0], [535.0, 535.0, 535.0], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    tri = _tri_pack(n_tris, cuda_device)
+    got = intersect(o, d, tri, xla=True)
+    ref = nearest_hit(o, d, tri, xla=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert ref[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_id", (CORNELL, PRISM))
+def test_xla_render_selects_with_the_intersect_kernel(cuda_device, scene_id):
+    """The XLA-style render launches the intersect kernel once a bounce and
+    sample, and equals the render whose selection is the plain version's;
+    render_chunk_diff's backward (that render's VJP) is finite."""
+    import dataclasses
+
+    from spectral_tpu_torch.diff import render_chunk_diff
+    from spectral_tpu_torch.render import wavefront
+
+    scene = build_scene(scene_id, cuda_device)
+    cam = scene_camera(scene_id, 32, 32, cuda_device)
+    spp, bounces = 4, 5
+    before = build.INTERSECT.launches
+    with torch.no_grad():
+        got = wavefront.render_chunk(scene, cam, 3, 0, 0, 32, 16, spp, bounces)
+        torch.cuda.synchronize()
+        assert build.INTERSECT.launches == before + spp * bounces
+        plain = wavefront.render_chunk(
+            scene, cam, 3, 0, 0, 32, 16, spp, bounces, select=lambda o, d, t: nearest_hit(o, d, t, xla=True)
+        )
+    assert torch.equal(got, plain) and got.max() > 0
+    coeffs = scene.materials.coeffs.clone().requires_grad_(True)
+    mats = dataclasses.replace(scene.materials, coeffs=coeffs)
+    out = render_chunk_diff(mats, scene, cam, 3, 0, 0, 32, 16, spp, bounces)
+    out[..., 1].sum().backward()
+    assert torch.isfinite(coeffs.grad).all() and coeffs.grad.abs().max() > 0
 
 
 def _final_state(n: int, spp: int, dev, seed: int):

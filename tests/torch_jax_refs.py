@@ -13,11 +13,21 @@ case's inputs and checks them against the record. Regenerate the file
 
     JAX_PLATFORMS=cpu python tests/torch_jax_refs.py
 
+    JAX_PLATFORMS=cpu python tests/torch_jax_refs.py CASE ...
+
+rewrites only the named cases and keeps the others.
+
 Cases: ``replay_tris`` (tests/test_torch_grad.py), ``intersect_cornell``
 (tests/test_torch_intersect.py), ``prism_render`` and ``prism_flip`` (tests/test_torch_render.py),
 ``fused_prism`` (tests/test_torch_diff.py), ``field_mega``
 (tests/test_torch_wavefront.py), ``field_sorted`` and ``field_replay``
-(tests/test_torch_wavefront_grad.py).
+(tests/test_torch_wavefront_grad.py); the XLA-style renderer's
+``xla_camera``, ``xla_spectrum``, ``xla_hits``, ``xla_scatter``,
+``xla_cornell``, ``xla_prism``, ``xla_train`` and ``xla_misc``
+(tests/test_torch_xla.py)
+and ``lbvh`` (tests/test_torch_lbvh.py). The XLA-style cases store the
+draws of the JAX renderer's key schedule beside its outputs, so that the
+port renders the same paths (``xla_draws``).
 """
 
 from __future__ import annotations
@@ -409,19 +419,390 @@ def field_replay_jax(x: dict) -> dict:
     return {k: np.asarray(v) for k, v in zip(("d_coeffs", "d_power", "d_bg", "d_sell_b", "d_sell_c"), (*g[:3], jd_b, jd_c))}
 
 
+# ---- the XLA-style renderer (render/wavefront.py) -------------------------
+
+
+def xla_draws(key, n: int, spp: int, bounces: int) -> dict:
+    """The draws of the JAX renderer's key schedule for n rays
+    (wavefront.py:184-186, :103; camera.py:107; shading.py:140): k =
+    fold(key, s), split into k_ray, k_lam, k_path; k_ray split into the
+    jitter's and the disk's keys; fold(k_path, b) split into the lambertian,
+    metallic and Schlick keys. jitter [spp, n, 2], disk [spp, n, 2], hero
+    (the hero uniforms) [spp, n], u1 and u2 [spp, B, n, 3], u_refl
+    [spp, B, n]."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.utils.prng import fold, random_in_unit_disk, random_unit_vectors
+
+    unit = jax.jit(lambda k: random_unit_vectors(k, (n,)))
+    out = {k: [] for k in ("jitter", "disk", "hero", "u1", "u2", "u_refl")}
+    for s in range(spp):
+        k_ray, k_lam, k_path = jax.random.split(fold(key, s), 3)
+        k_jit, k_disk = jax.random.split(k_ray)
+        out["jitter"].append(jax.random.uniform(k_jit, (n, 2), jnp.float32))
+        out["disk"].append(random_in_unit_disk(k_disk, (n,)))
+        out["hero"].append(jax.random.uniform(k_lam, (n,), jnp.float32))
+        bounce = [jax.random.split(fold(k_path, b), 3) for b in range(bounces)]
+        out["u1"].append([unit(k[0]) for k in bounce])
+        out["u2"].append([unit(k[1]) for k in bounce])
+        out["u_refl"].append([jax.random.uniform(k[2], (n,), jnp.float32) for k in bounce])
+    return {f"draws.{k}": np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def jax_camera_arrays(cam) -> dict:
+    return {f.name: np.asarray(getattr(cam, f.name)) for f in dataclasses.fields(cam)}
+
+
+def _render_inputs(scene_id, size, crop, spp, bounces, seed, sky=False, glass=-1) -> dict:
+    from spectral_tpu.models import scenes as jscenes
+
+    jscene = jscenes.build_scene(scene_id)
+    if sky:
+        jscene = sky_lit_jax(jscene)
+    cot = np.random.default_rng(99).normal(size=(crop[3], crop[2], 3)).astype(np.float32)
+    return dict(scene=jax_arrays(jscene), cam=jax_camera_arrays(jscenes.scene_camera(scene_id, *size)),
+                crop=np.asarray(crop, np.int32), spp=np.int32(spp), bounces=np.int32(bounces), seed=np.int32(seed),
+                cot=cot, glass=np.int32(glass))
+
+
+def _jax_scene(arrays: dict):
+    """A JAX Scene from jax_arrays' dict."""
+    import jax.numpy as jnp
+
+    from spectral_tpu.models.materials import Materials
+    from spectral_tpu.models.scenes import Scene
+
+    sd = dict(arrays)
+    mats = Materials(**{k: jnp.asarray(v) for k, v in sd.pop("materials").items()})
+    return Scene(**{k: jnp.asarray(v) for k, v in sd.items()}, materials=mats)
+
+
+def _jax_camera(c: dict):
+    """A JAX Camera from jax_camera_arrays' dict."""
+    import jax.numpy as jnp
+
+    from spectral_tpu.models.camera import Camera
+
+    vecs = ("center", "pixel00_loc", "pixel_delta_u", "pixel_delta_v", "defocus_disk_u", "defocus_disk_v", "background")
+    return Camera(**{k: jnp.asarray(c[k]) for k in vecs}, defocus_angle=float(c["defocus_angle"]),
+                  image_width=int(c["image_width"]), image_height=int(c["image_height"]))
+
+
+def _render_jax(x: dict) -> dict:
+    """The JAX render_chunk of the case, its draws, and the gradients of
+    sum(xyz * cot) with respect to coeffs, emission_power, the background
+    SPD and Sellmeier B/C (with reparam_glass when ``glass`` >= 0)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.models.materials import tabulate
+    from spectral_tpu.render.wavefront import render_chunk
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    x0, y0, w, h = (int(v) for v in x["crop"])
+    spp, bounces, glass = int(x["spp"]), int(x["bounces"]), int(x["glass"])
+    glass = None if glass < 0 else glass
+    key = jax.random.PRNGKey(int(x["seed"]))
+    cot = jnp.asarray(x["cot"])
+
+    def render(coeffs, power, bg, sb, sc):
+        m = dataclasses.replace(scene.materials, coeffs=coeffs, emission_power=power, sellmeier_b=sb, sellmeier_c=sc)
+        s = dataclasses.replace(scene, materials=tabulate(m), background_spd=bg)
+        return render_chunk(s, cam, key, x0, y0, w, h, spp, bounces, reparam_glass=glass)
+
+    m = scene.materials
+    leaves = (m.coeffs, m.emission_power, scene.background_spd, m.sellmeier_b, m.sellmeier_c)
+    grads = jax.grad(lambda *a: jnp.sum(render(*a) * cot), argnums=tuple(range(5)))(*leaves)
+    out = dict(xyz=render(*leaves), **dict(zip(("d_coeffs", "d_power", "d_bg", "d_sell_b", "d_sell_c"), grads)))
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out.update(xla_draws(key, w * h, spp, bounces))
+    return out
+
+
+def xla_cornell_inputs() -> dict:
+    """CORNELL 16x16, 4 spp, 4 bounces, PRNGKey(0), a cotangent of seed 99."""
+    from spectral_tpu.models.scenes import CORNELL
+
+    return _render_inputs(CORNELL, (16, 16), (0, 0, 16, 16), 4, 4, 0)
+
+
+def xla_prism_inputs() -> dict:
+    """The upper 32x16 crop of PRISM's 32x32 camera, 8 spp, 6 bounces,
+    PRNGKey(1), reparam_glass = 2 (inverse_dispersion.py's XLA shape)."""
+    from spectral_tpu.models.scenes import PRISM
+
+    return _render_inputs(PRISM, (32, 32), (0, 0, 32, 16), 8, 6, 1, glass=2)
+
+
+xla_cornell_jax = xla_prism_jax = _render_jax
+
+
+def xla_train_inputs() -> dict:
+    """One train_step on CORNELL 16x16, 4 spp, 4 bounces, PRNGKey(3), lr
+    1e-9, from coeffs with the white wall's third coefficient + 1.5
+    (inverse_rendering.py:51), against a target of seed 5."""
+    from spectral_tpu.models.scenes import CORNELL
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+    from spectral_tpu.models.scenes import scene_camera as jax_scene_camera
+
+    jscene = jax_build_scene(CORNELL)
+    coeffs = np.array(jscene.materials.coeffs)
+    coeffs[3, 2] += 1.5
+    target = np.random.default_rng(5).uniform(0.0, 0.3, (16, 16, 3)).astype(np.float32)
+    return dict(scene=jax_arrays(jscene), cam=jax_camera_arrays(jax_scene_camera(CORNELL, 16, 16)),
+                coeffs=coeffs, power=np.asarray(jscene.materials.emission_power), target=target,
+                spp=np.int32(4), bounces=np.int32(4), seed=np.int32(3), lr=np.float32(1e-9))
+
+
+def xla_train_jax(x: dict) -> dict:
+    """JAX's train_step on a 1 x 1 mesh (parallel/render.py:352), and the
+    draws of its one shard (keyed fold(key, 0, 0), render.py:80)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.parallel.mesh import make_mesh
+    from spectral_tpu.parallel.render import train_step
+    from spectral_tpu.utils.prng import fold
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    key = jax.random.PRNGKey(int(x["seed"]))
+    params = {"coeffs": jnp.asarray(x["coeffs"]), "emission_power": jnp.asarray(x["power"])}
+    spp, bounces = int(x["spp"]), int(x["bounces"])
+    new, loss = train_step(params, scene, cam, jnp.asarray(x["target"]), key, make_mesh(1), spp, bounces,
+                           float(x["lr"]))
+    out = dict(loss=np.asarray(loss), coeffs=np.asarray(new["coeffs"]), power=np.asarray(new["emission_power"]))
+    out.update(xla_draws(fold(key, 0, 0), cam.image_width * cam.image_height, spp, bounces))
+    return out
+
+
+def xla_camera_inputs() -> dict:
+    """A thin-lens camera (defocus 2 degrees, focus 800) at 16x8 and its
+    pixels, PRNGKey(4)."""
+    from spectral_tpu.models.camera import make_camera
+
+    cam = make_camera(16, 8, 40.0, (278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0), 2.0, 800.0)
+    ys, xs = np.meshgrid(np.arange(8), np.arange(16), indexing="ij")
+    return dict(cam=jax_camera_arrays(cam), px=xs.ravel().astype(np.int32), py=ys.ravel().astype(np.int32),
+                seed=np.int32(4))
+
+
+def xla_camera_jax(x: dict) -> dict:
+    """generate_rays with defocus, and its jitter and disk draws."""
+    import jax
+
+    from spectral_tpu.models.camera import generate_rays
+    from spectral_tpu.utils.prng import random_in_unit_disk
+
+    cam = _jax_camera(x["cam"])
+    key = jax.random.PRNGKey(int(x["seed"]))
+    n = x["px"].shape[0]
+    o, d = jax.jit(lambda k: generate_rays(cam, x["px"], x["py"], k))(key)
+    k_jit, k_disk = jax.random.split(key)
+    return dict(o=np.asarray(o), d=np.asarray(d), jitter=np.asarray(jax.random.uniform(k_jit, (n, 2))),
+                disk=np.asarray(random_in_unit_disk(k_disk, (n,))))
+
+
+def xla_spectrum_inputs() -> dict:
+    """1024 rays' powers (seed 6, some negative), n_valid in 0..7, sRGB
+    triples in [0, 1], PRNGKey(6) for the heroes."""
+    rng = np.random.default_rng(6)
+    n = 1024
+    return dict(power=rng.normal(1.0, 0.5, (n, 7)).astype(np.float32), n_valid=rng.integers(0, 8, n).astype(np.int32),
+                srgb=rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32), seed=np.int32(6))
+
+
+def xla_spectrum_jax(x: dict) -> dict:
+    """hero_wavelengths (and its uniforms), spectrum_to_xyz of those combs,
+    srgb_to_xyz."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.ops.color import srgb_to_xyz
+    from spectral_tpu.ops.spectrum import hero_wavelengths, spectrum_to_xyz
+
+    key = jax.random.PRNGKey(int(x["seed"]))
+    n = x["power"].shape[0]
+    lam = jax.jit(lambda k: hero_wavelengths(k, (n,), 7))(key)
+    xyz = jax.jit(spectrum_to_xyz)(lam, jnp.asarray(x["power"]), jnp.asarray(x["n_valid"]))
+    return dict(u=np.asarray(jax.random.uniform(key, (n,), jnp.float32)), lam=np.asarray(lam), xyz=np.asarray(xyz),
+                srgb_xyz=np.asarray(jax.jit(srgb_to_xyz)(jnp.asarray(x["srgb"]))))
+
+
+def xla_hits_inputs() -> dict:
+    """CORNELL's and PRISM's arrays, and 1024 rays of seed 8 in and in
+    front of the box."""
+    from spectral_tpu.models.scenes import CORNELL, PRISM
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+
+    rng = np.random.default_rng(8)
+    o = rng.uniform([20.0, 20.0, -400.0], [535.0, 535.0, 535.0], (1024, 3)).astype(np.float32)
+    d = rng.normal(size=(1024, 3)).astype(np.float32)
+    return dict(cornell=jax_arrays(jax_build_scene(CORNELL)), prism=jax_arrays(jax_build_scene(PRISM)), o=o, d=d)
+
+
+def xla_hits_jax(x: dict) -> dict:
+    """The JAX scene-level nearest_hit (intersect.py:92) on both scenes."""
+    import jax
+
+    from spectral_tpu.ops.intersect import nearest_hit
+
+    out = {}
+    for name in ("cornell", "prism"):
+        scene = _jax_scene(x[name])
+        rec = jax.jit(lambda o, d: nearest_hit(o, d, scene))(x["o"], x["d"])
+        out.update({f"{name}.{f}": np.asarray(getattr(rec, f)) for f in rec._fields})
+    return out
+
+
+def xla_scatter_inputs() -> dict:
+    """A bounce of 2048 hand-made rays on TRIS's 9 materials (lambertian,
+    metallic with fuzz 0.3 and 0.8, flint and BK7, emissive), seed 9: unit
+    normals facing the ray or not, a sixth of them misses, a tenth already
+    ended, hero combs over the band, grazing rays among them (so metal
+    absorbs and total internal reflections occur); PRNGKey(9)."""
+    from spectral_tpu.models.scenes import TRIS
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+
+    rng = np.random.default_rng(9)
+    n = 2048
+    jscene = jax_build_scene(TRIS)
+    n_mats = jscene.materials.mat_type.shape[0]
+    d = rng.normal(size=(n, 3))
+    normal = rng.normal(size=(n, 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    # a third of the rays graze their surface
+    graze = rng.random(n) < 1.0 / 3.0
+    d[graze] -= np.sum(d[graze] * normal[graze], axis=1, keepdims=True) * normal[graze] * rng.uniform(0.9, 1.0, (graze.sum(), 1))
+    front = np.sum(d * normal, axis=1) < 0.0
+    hero = rng.uniform(360.0, 830.0, n)
+    lam = hero[:, None] + np.arange(7) * (470.0 / 7.0)
+    lam = np.where(lam > 830.0, lam - 470.0, lam)
+    return dict(
+        scene=jax_arrays(jscene), o=rng.uniform(0.0, 555.0, (n, 3)).astype(np.float32), d=d.astype(np.float32),
+        wavelengths=lam.astype(np.float32), power=rng.uniform(0.0, 2.0, (n, 7)).astype(np.float32),
+        n_valid=rng.choice(np.asarray([1, 7], np.int32), n), alive=rng.random(n) > 0.1,
+        hit=rng.random(n) > 1.0 / 6.0, p=rng.uniform(0.0, 555.0, (n, 3)).astype(np.float32),
+        normal=np.where(front[:, None], normal, -normal).astype(np.float32), front=front,
+        mat_index=rng.integers(0, n_mats, n).astype(np.int32), seed=np.int32(9),
+    )
+
+
+def xla_scatter_jax(x: dict) -> dict:
+    """scatter_step (shading.py:115) on the batch, and its draws."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.ops.intersect import BIG, HitRecord
+    from spectral_tpu.ops.shading import RayState, scatter_step
+    from spectral_tpu.utils.prng import random_unit_vectors
+
+    scene = _jax_scene(x["scene"])
+    n = x["o"].shape[0]
+    hit = jnp.asarray(x["hit"])
+    rec = HitRecord(t=jnp.where(hit, 1.0, BIG), hit=hit, p=jnp.asarray(x["p"]), normal=jnp.asarray(x["normal"]),
+                    front_face=jnp.asarray(x["front"]), mat_index=jnp.asarray(x["mat_index"]),
+                    tri_index=jnp.where(hit, 0, -1))
+    state = RayState(o=jnp.asarray(x["o"]), d=jnp.asarray(x["d"]), wavelengths=jnp.asarray(x["wavelengths"]),
+                     power=jnp.asarray(x["power"]), n_valid=jnp.asarray(x["n_valid"]), alive=jnp.asarray(x["alive"]))
+    key = jax.random.PRNGKey(int(x["seed"]))
+    out = jax.jit(lambda st, r, k: scatter_step(st, r, scene.materials, scene.background_spd, k))(state, rec, key)
+    k_lamb, k_fuzz, k_sch = jax.random.split(key, 3)
+    unit = jax.jit(lambda k: random_unit_vectors(k, (n,)))
+    res = {f: np.asarray(getattr(out, f)) for f in ("o", "d", "power", "n_valid", "alive")}
+    res.update(u1=np.asarray(unit(k_lamb)), u2=np.asarray(unit(k_fuzz)),
+               u_refl=np.asarray(jax.random.uniform(k_sch, (n,), jnp.float32)))
+    return res
+
+
+def xla_misc_inputs() -> dict:
+    """1024 values of seed 12 (infinities among them) and clamp bounds, for
+    utils/misc.py::device_clamp; 512 rays of seed 12 in and in front of the
+    box (a quarter with a zero direction component, so an infinite inverse)
+    against 64 boxes, and per-ray t limits, for ray_aabb (intersect.py:143)."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(0.0, 3.0, 1024).astype(np.float32)
+    x[:4] = (np.inf, -np.inf, 1.5, -1.5)
+    n, n_boxes = 512, 64
+    o = rng.uniform([20.0, 20.0, -400.0], [535.0, 535.0, 535.0], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[rng.random(n) < 0.25, rng.integers(0, 3)] = 0.0
+    with np.errstate(divide="ignore"):
+        inv_d = (np.float32(1.0) / d).astype(np.float32)
+    centre = rng.uniform(0.0, 555.0, (n_boxes, 3))
+    half = rng.uniform(5.0, 120.0, (n_boxes, 3))
+    return dict(x=x, lo=np.float32(-1.5), hi=np.float32(2.0), o=o, inv_d=inv_d,
+                bb_min=(centre - half).astype(np.float32), bb_max=(centre + half).astype(np.float32),
+                t_min=np.float32(1.0), t_max=rng.uniform(100.0, 1500.0, (n, 1)).astype(np.float32))
+
+
+def xla_misc_jax(x: dict) -> dict:
+    """device_clamp (utils/misc.py), and ray_aabb with its default t range
+    and with the case's."""
+    import jax.numpy as jnp
+
+    from spectral_tpu.ops.intersect import ray_aabb
+    from spectral_tpu.utils.misc import device_clamp
+
+    boxes = [jnp.asarray(x[k]) for k in ("o", "inv_d", "bb_min", "bb_max")]
+    return dict(clamp=np.asarray(device_clamp(jnp.asarray(x["x"]), x["lo"], x["hi"])),
+                aabb=np.asarray(ray_aabb(*boxes)),
+                aabb_range=np.asarray(ray_aabb(*boxes, x["t_min"], jnp.asarray(x["t_max"]))))
+
+
+LBVH_LEAF_SIZES = (4, 8)
+
+
+def lbvh_inputs() -> dict:
+    """build_tri_field(520, 3)'s arrays and 2048 rays of seed 10 over it."""
+    from spectral_tpu.models import scenes as jscenes
+
+    rng = np.random.default_rng(10)
+    o = rng.uniform([20.0, 20.0, -400.0], [535.0, 300.0, 535.0], (2048, 3)).astype(np.float32)
+    d = rng.normal(size=(2048, 3)).astype(np.float32)
+    return dict(scene=jax_arrays(jscenes.build_tri_field(520, 3)), o=o, d=d)
+
+
+def lbvh_jax(x: dict) -> dict:
+    """build_lbvh's tables (bvh.py:98) and nearest_hit_bvh's record
+    (bvh.py:233) at each of LBVH_LEAF_SIZES."""
+    import jax
+
+    from spectral_tpu.ops.bvh import build_lbvh, nearest_hit_bvh
+
+    scene = _jax_scene(x["scene"])
+    out = {}
+    for ls in LBVH_LEAF_SIZES:
+        bvh = build_lbvh(scene.bbox_min, scene.bbox_max, ls)
+        out.update({f"leaf{ls}.{k}": np.asarray(getattr(bvh, k))
+                    for k in ("node_min", "node_max", "left", "right", "leaf_start", "order")})
+        rec = jax.jit(lambda o, d: nearest_hit_bvh(o, d, scene, bvh))(x["o"], x["d"])
+        out.update({f"leaf{ls}.{f}": np.asarray(getattr(rec, f)) for f in rec._fields})
+    return out
+
+
 CASES = {
     name: (globals()[f"{name}_inputs"], globals()[f"{name}_jax"])
     for name in ("replay_tris", "intersect_cornell", "prism_render", "prism_flip", "fused_prism", "field_mega",
-                 "field_sorted", "field_replay")
+                 "field_sorted", "field_replay", "xla_camera", "xla_spectrum", "xla_hits", "xla_scatter",
+                 "xla_cornell", "xla_prism", "xla_train", "xla_misc", "lbvh")
 }
 
 
-def main() -> int:
-    """Recompute every case (in order: field_replay reads field_sorted's
-    new outputs) and write the file."""
+def main(names=()) -> int:
+    """Recompute every case, or only ``names`` (in order: field_replay reads
+    field_sorted's new outputs), and write the file."""
     global _STORE
     store = {}
+    if names:
+        unknown = set(names) - set(CASES)
+        if unknown:
+            raise SystemExit(f"unknown cases {sorted(unknown)}")
+        with np.load(REFS) as f:
+            store = {k: f[k] for k in f.files if k.split("/")[0] not in names}
     for name, (make_inputs, run_jax) in CASES.items():
+        if names and name not in names:
+            continue
         _STORE = dict(store)
         x = make_inputs()
         out = run_jax(x)
@@ -435,4 +816,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    sys.exit(main())
+    sys.exit(main(tuple(sys.argv[1:])))
