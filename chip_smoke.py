@@ -97,23 +97,48 @@ Phases, each fatal on failure:
    two renderers (tests/test_parity_contract.py's method on CORNELL and
    PRISM at 128x128, 256 spp, 5 bounces: the kernel image's
    block-downsampled error against the XLA-style images at most 1.1x their
-   reseed error, mean luminance within 2%, BASELINE.md's on-chip contract).
+   reseed error, mean luminance within 2%, BASELINE.md's on-chip contract);
+13. the warp estimators (diff/vertex_warp.py, diff/fuzz_warp.py) on the
+   XLA-style renderer: one warped vertex gradient at
+   examples/inverse_geometry.py's shape (16x16, 8 spp, 3 bounces) with
+   exactly 2 x 8 x 3 intersect launches (forward and the checkpoint's
+   recompute) and no other; the JAX suite's statistical checks, each with
+   its scene, loss, spp, bounces, K and band (tests/test_diff.py): the
+   screen silhouette (K = 48, [0.90, 1.06] x 4737 +- 3 sem), the shadow
+   (K = 48, [0.80, 1.20] x 934 +- 3 sem), the non-rigid corner (K = 12,
+   N = 20000, within 15% of 0.0403 + 3 sem) and the fuzz (K = 160, [0.3,
+   2.0] x 522 +- 3 sem); the primal identities (warped and plain Cornell
+   16x16, 2 spp, 3 bounces, and the fuzz scene with and without its warp:
+   max-abs < 2e-5) and the plain estimator's vertex and fuzz gradients
+   exactly 0; both warp examples in full (python -m
+   spectral_tpu_torch.examples.inverse_geometry / inverse_fuzz), their
+   recovery asserts the gate; the full-width case (scratch/r5_vwarp_chip.py:
+   the 520-triangle all-diffuse field at 64x64, 8 spp, 3 bounces, every box
+   moving in +x, 8 x 8 block rademacher weights, th = 0) through the LBVH
+   and through the intersect kernel's dense selection, the two gradients
+   equal within rtol 2e-4 on the same draws, then for each the ms of an
+   estimate (CUDA events, warm), its peak memory, the warp's forward ms and
+   the intersect kernel's ms in it (events around each call), and the AD
+   mean +- sem of as many estimates as fit in WARP_SECONDS (all finite, the
+   mean nonzero).
 
 Launch counts are set to 0 just before each of phases 5-7, 10-11 and the
 XLA-style render, the CLI and each render_chunk_diff pass of phase 12, and
-read just after. Prints a ``{"kernels": [...]}`` line after phase 12, with
-each kernel's launches on its path (the render megakernel's from phase 5
-and, beside them, from render_chunk_diff's forward, the fused kernels'
-from phase 6, the leaf megakernel's and the sorted kernels' from phase 10,
-the leaf residual form's from phase 11, the intersect kernel's from phase
-12, whose times are those of its instantiation on that path, with phase
-4's beside them),
+the warped gradient of phase 13, and read just after. Prints a
+``{"kernels": [...]}`` line after phase 13, with each kernel's launches on
+its path (the render megakernel's from phase 5 and, beside them, from
+render_chunk_diff's forward, the fused kernels' from phase 6, the leaf
+megakernel's and the sorted kernels' from phase 10, the leaf residual
+form's from phase 11, the intersect kernel's from phase 12, whose times are
+those of its instantiation on that path, with phase 4's beside them, and
+its launches on phase 13's warped gradient),
 then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.
 
 ``python3 chip_smoke.py --xla`` runs phase 12 alone (after the build) and
-prints what it measured as one JSON line.
+prints what it measured as one JSON line; ``--warp`` does the same for
+phase 13.
 
 ``python3 chip_smoke.py --leaf-sizes`` instead times both large-scene
 schedulers on the 10k and 200k fields at leaf sizes 8 to 128 (the sweep
@@ -1311,6 +1336,273 @@ def xla_phase(dev, smi: str) -> dict:
             "lbvh_ms": bvh_ms, "parity": parity}
 
 
+# the warp phase (13): the JAX suite's statistical checks (tests/test_diff.py
+# TestVertexWarp, TestFuzzWarp), each with its scene, loss, spp, bounces, K
+# and band; the signs of the JAX suite's rademacher weights, W =
+# rademacher(PRNGKey(42), 256) of the fuzz check and the 8 x 8 block signs
+# 2 bernoulli(PRNGKey(7), 0.5) - 1 of the full-width case, as hex bits
+FUZZ_W_HEX = "8a222eb193a459cdd7668e1a933c91e44ca8c361a99a316ed8f9c3e88cb12d8b"
+BLOCK_W_HEX = "33e5a65569b2f89b"
+# the full-width case (scratch/r5_vwarp_chip.py:40-95): the 520-triangle
+# all-diffuse field at 64x64, 8 spp, 3 bounces, every box moving in +x,
+# 8 x 8 block-constant weights, gradients at th = 0; the seconds of
+# estimates a route
+WARP_SIZE, WARP_SPP, WARP_BOUNCES, WARP_BLOCK, WARP_SECONDS = 64, 8, 3, 8, 60.0
+
+
+def signs(hex_bits: str) -> np.ndarray:
+    return 2.0 * np.unpackbits(np.frombuffer(bytes.fromhex(hex_bits), np.uint8)).astype(np.float32) - 1.0
+
+
+def screen_scene(dev):
+    """tests/test_diff.py:739's screen scene: a dark quad before an
+    emissive one, 16x16; its moving triangles start at 2."""
+    from spectral_tpu_torch.models.camera import make_camera
+    from spectral_tpu_torch.models.geometry import TriSoup
+    from spectral_tpu_torch.models.materials import MaterialBuilder
+    from spectral_tpu_torch.models.scenes import scene_from_soup
+
+    mb = MaterialBuilder()
+    dark = mb.lambertian((0.1, 0.1, 0.1))
+    light = mb.emissive((1.0, 1.0, 1.0), 4.0)
+    soup = TriSoup()
+    soup.quad((-4.0, -4.0, 3.0), (8.0, 0.0, 0.0), (0.0, 8.0, 0.0), light)
+    soup.quad((-3.0, -2.0, 1.0), (3.0, 0.0, 0.0), (0.0, 4.0, 0.0), dark)
+    cam = make_camera(16, 16, vfov=60.0, lookfrom=(0, 0, -2), lookat=(0, 0, 0), device=dev)
+    return scene_from_soup(soup, mb.build(), dev), cam
+
+
+def vertex_grad(scene, cam, first: int, key: int, spp: int, bounces: int, warp: bool, weights=None, frame=None,
+                select=None) -> float:
+    """d loss / d th at th = 0, the triangles from ``first`` on moving by th
+    in +x (test_diff.py:775-791): loss = sum(w * Y) of the accumulated XYZ
+    (w = 1 by default), with the warp's edges those of the live vertices."""
+    from spectral_tpu_torch.diff import scene_with_vertices
+    from spectral_tpu_torch.diff.vertex_warp import edges_from_vertices
+    from spectral_tpu_torch.render import wavefront
+
+    dev = scene.v0.device
+    move = (torch.arange(scene.num_tris, device=dev) >= first).float()[:, None] * torch.tensor([1.0, 0.0, 0.0],
+                                                                                             device=dev)
+    th = torch.zeros((), device=dev, requires_grad=True)
+    vs = [getattr(scene, k) + th * move for k in ("v0", "v1", "v2")]
+    x0, y0, w, h = frame or (0, 0, cam.image_width, cam.image_height)
+    out = wavefront.render_chunk(scene_with_vertices(scene, *vs), cam, key, x0, y0, w, h, spp, bounces,
+                                 vertex_warp=edges_from_vertices(*vs) if warp else None, select=select)
+    y = out[..., 1].reshape(-1)
+    loss = (y if weights is None else y * weights).sum()
+    if not loss.requires_grad:
+        return 0.0
+    return float(torch.autograd.grad(loss, th, allow_unused=True, materialize_grads=True)[0])
+
+
+def fuzz_grad(prob, weights, key: int, warp: bool) -> float:
+    """d sum(W * Y) / d fuzz at 0.25 on the fuzz scene, 4 spp, 2 bounces
+    (test_diff.py:1008-1027)."""
+    from spectral_tpu_torch.render import wavefront
+
+    f = torch.tensor(0.25, device=weights.device, requires_grad=True)
+    mats = prob.scene.materials
+    s = dataclasses.replace(prob.scene, materials=dataclasses.replace(
+        mats, fuzz=torch.where(prob.hot.bool(), f, mats.fuzz)))
+    xyz = wavefront.render_tile_xyz(s, prob.cam, prob.px, prob.py, key, 4, 2,
+                                    fuzz_warp=prob.edges if warp else None)
+    loss = (weights * xyz[:, 1]).sum()
+    if not loss.requires_grad:
+        return 0.0
+    return float(torch.autograd.grad(loss, f, allow_unused=True, materialize_grads=True)[0])
+
+
+def nonrigid_grad(dev, key: int, n: int = 20000) -> float:
+    """test_diff.py:851-919: one corner of a quad light skews while the
+    others stay; the lambertian sphere warp of n cosine samples about y-hat
+    at the origin, d mean(lit * factor) / d th at 0."""
+    import math
+
+    from spectral_tpu_torch.diff.vertex_warp import EdgeSet, warp_directions
+    from spectral_tpu_torch.utils.prng import fold, generator
+
+    zh, xe = 0.6, 0.5
+    th = torch.zeros((), device=dev, requires_grad=True)
+    one = torch.ones((), device=dev)
+    c1 = torch.stack([xe + th, 2.0 * one, zh * one])
+    c2 = torch.tensor([xe, 2.0, -zh], device=dev)
+    c3 = torch.tensor([-1.5, 2.0, -zh], device=dev)
+    c4 = torch.tensor([-1.5, 2.0, zh], device=dev)
+    edges = EdgeSet(a=torch.stack([c2, c1, c4, c3]), b=torch.stack([c1, c4, c3, c2]))
+    gen = generator(fold(0x5EED, key), dev)
+    u1, u2 = torch.rand(n, generator=gen, device=dev), torch.rand(n, generator=gen, device=dev)
+    rr, phi = torch.sqrt(u1), 2.0 * math.pi * u2
+    nrm = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    w0 = torch.stack([rr * torch.cos(phi), torch.sqrt(torch.clamp_min(1.0 - u1, 0.0)), rr * torch.sin(phi)], -1)
+    wp, factor = warp_directions(torch.zeros((n, 3), device=dev), nrm.expand(n, 3), w0, edges)
+    t = 2.0 / torch.clamp_min(wp[:, 1], 1e-6)
+    x, z = wp[:, 0] * t, wp[:, 2] * t
+    xe_th = xe + th * (z + zh) / (2 * zh)
+    lit = ((x <= xe_th) & (z.abs() <= zh) & (x >= -1.5) & (wp[:, 1] > 0)).float()
+    return float(torch.autograd.grad((lit * factor).mean(), th)[0])
+
+
+def band_check(name: str, fn, k: int, check) -> dict:
+    """k estimates fn(i), their mean and sem, held to check(mean, sem)."""
+    t0 = time.perf_counter()
+    ads = np.array([fn(i) for i in range(k)])
+    secs = time.perf_counter() - t0
+    mean, sem = float(ads.mean()), float(ads.std() / np.sqrt(k))
+    ok, band = check(mean, sem)
+    log(f"  {name}: K={k}, AD mean {mean} +- {sem} (sem), band {band}: {'ok' if ok else 'OUT'} ({secs:.1f} s)")
+    if not np.all(np.isfinite(ads)) or not ok:
+        raise SystemExit(f"warp check {name} failed: mean {mean} +- {sem}, band {band}")
+    return {"k": k, "mean": mean, "sem": sem, "band": band, "s": secs}
+
+
+def warp_phase(dev, smi: str) -> dict:
+    """Phase 13: the warp estimators on the card. Returns what the kernels
+    line and PERF.md report."""
+    from spectral_tpu_torch.diff import vertex_warp
+    from spectral_tpu_torch.diff.vertex_warp import edges_from_vertices
+    from spectral_tpu_torch.examples import inverse_fuzz, inverse_geometry
+    from spectral_tpu_torch.models.scenes import CORNELL, build_diffuse_field, build_scene, scene_camera, with_bvh
+    from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect
+    from spectral_tpu_torch.render import wavefront
+
+    out = {}
+    # launch counts around one warped gradient at the example's shape
+    shadow, scam = inverse_geometry.build(dev)
+    for k in build.KERNELS.values():
+        k.launches = 0
+    g = vertex_grad(shadow, scam, inverse_geometry.FIRST_OCCLUDER_TRI, 1, inverse_geometry.SPP,
+                    inverse_geometry.BOUNCES, True)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+    spp = inverse_geometry.SPP
+    passes = -(-spp // wavefront.samples_per_pass(16 * 16, spp))
+    want = 2 * passes * inverse_geometry.BOUNCES
+    log(f"warped gradient, shadow scene 16x16, {spp} spp ({passes} pass of render_tile_xyz), "
+        f"{inverse_geometry.BOUNCES} bounces: d/dth {g}, launches {launches}")
+    if launches != {"intersect": want} or not np.isfinite(g):
+        raise SystemExit(f"warped gradient: launches {launches}, not {want} intersect launches (a pass and bounce "
+                         "forward, and again in the checkpoint's recompute)")
+    out["launches"], out["passes"] = launches["intersect"], passes
+
+    # the JAX suite's statistical checks
+    t0 = time.perf_counter()
+    screen, ccam = screen_scene(dev)
+    stats = {}
+    stats["screen"] = band_check(
+        "screen silhouette (-4737)", lambda i: vertex_grad(screen, ccam, 2, i, 4, 2, True), 48,
+        lambda m, e: (m < 0 and abs(m) > 5 * e and 0.90 * 4737 - 3 * e <= -m <= 1.06 * 4737 + 3 * e,
+                      [0.90 * 4737 - 3 * e, 1.06 * 4737 + 3 * e]))
+    stats["shadow"] = band_check(
+        "shadow (-934)", lambda i: vertex_grad(shadow, scam, 4, i, 4, 3, True), 48,
+        lambda m, e: (m < 0 and abs(m) > 3 * e and 0.80 * 934 - 3 * e <= -m <= 1.20 * 934 + 3 * e,
+                      [0.80 * 934 - 3 * e, 1.20 * 934 + 3 * e]))
+    stats["nonrigid"] = band_check(
+        "non-rigid corner (+0.0403)", lambda i: nonrigid_grad(dev, i), 12,
+        lambda m, e: (m > 0 and m > 5 * e and abs(m - 0.0403) < 0.15 * 0.0403 + 3 * e,
+                      [0.0403 - 0.15 * 0.0403 - 3 * e, 0.0403 + 0.15 * 0.0403 + 3 * e]))
+    fprob = inverse_fuzz.Problem(dev)
+    fw = torch.from_numpy(signs(FUZZ_W_HEX)).to(dev)
+    stats["fuzz"] = band_check(
+        "fuzz (-522)", lambda i: fuzz_grad(fprob, fw, i, True), 160,
+        lambda m, e: (m < 0 and abs(m) > 2 * e and 0.3 * 522 - 3 * e <= -m <= 2.0 * 522 + 3 * e,
+                      [0.3 * 522 - 3 * e, 2.0 * 522 + 3 * e]))
+    # the primal identities, and the plain estimator's zero gradients
+    cornell = build_scene(CORNELL, dev)
+    ccam16 = scene_camera(CORNELL, 16, 16, dev)
+    with torch.no_grad():
+        base = wavefront.render_chunk(cornell, ccam16, 11, 0, 0, 16, 16, 2, 3)
+        warped = wavefront.render_chunk(cornell, ccam16, 11, 0, 0, 16, 16, 2, 3,
+                                        vertex_warp=edges_from_vertices(cornell.v0, cornell.v1, cornell.v2))
+        f0 = torch.tensor(0.25, device=dev)
+        fplain, fwarped = fprob.render(f0, 0, False), fprob.render(f0, 0, True)
+    vid = float((base - warped).abs().max())
+    fid = float((fplain - fwarped).abs().max())
+    floss = (float((fw * fplain[:, 1]).sum()), float((fw * fwarped[:, 1]).sum()))
+    zero_v = vertex_grad(screen, ccam, 2, 0, 4, 2, False)
+    zero_f = fuzz_grad(fprob, fw, 0, False)
+    log(f"  primal identities: Cornell 16x16, 2 spp, 3 bounces, warped vs plain max-abs {vid}; fuzz scene {fid} "
+        f"(weighted loss plain, warped: {floss}); plain estimator's vertex gradient {zero_v}, fuzz gradient "
+        f"{zero_f}")
+    if not (vid < 2e-5 and fid < 2e-5 and zero_v == 0.0 and zero_f == 0.0 and float(base.max()) > 1.0):
+        raise SystemExit("warp primal identities or zero plain gradients broken")
+    out.update(stats=stats, identity_cornell=vid, identity_fuzz=fid, fuzz_losses=floss,
+               checks_s=time.perf_counter() - t0)
+
+    # both examples in full
+    for name, mod in (("inverse_geometry", inverse_geometry), ("inverse_fuzz", inverse_fuzz)):
+        t0 = time.perf_counter()
+        try:
+            res = mod.main(device=dev, log=lambda m, name=name: log(f"  {name}: {m}"))
+        except AssertionError as e:
+            raise SystemExit(f"{name}: {e}")
+        out[name] = dict(res, s=time.perf_counter() - t0, steps=mod.STEPS)
+        log(f"  {name}: {mod.STEPS} steps in {out[name]['s']:.1f} s")
+
+    # the full-width case, through the LBVH and through the dense intersect
+    field = build_diffuse_field(520, 0, dev)
+    accel = with_bvh(field, 8)
+    fcam = scene_camera(CORNELL, WARP_SIZE, WARP_SIZE, dev)
+    n_walls, size, spp, b = 12, WARP_SIZE, WARP_SPP, WARP_BOUNCES
+    blocks = signs(BLOCK_W_HEX).reshape(size // WARP_BLOCK, size // WARP_BLOCK)
+    wts = torch.from_numpy(np.repeat(np.repeat(blocks, WARP_BLOCK, 0), WARP_BLOCK, 1).reshape(-1)).to(dev) / spp
+    spans = {"b1": [], "warp": []}
+
+    def timed(kind, fn):
+        def wrapped(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **k)
+            e1.record()
+            spans[kind].append((e0, e1))
+            return r
+        return wrapped
+
+    b1 = timed("b1", lambda o, d, t: intersect(o, d, t, xla=True))
+    same = [vertex_grad(sc, fcam, n_walls, 0, spp, b, True, wts) for sc in (accel, field)]
+    log(f"  full width, the same draws: LBVH {same[0]}, dense {same[1]}")
+    if not np.isclose(same[0], same[1], rtol=2e-4, atol=0.0):
+        raise SystemExit(f"full-width warped gradient: LBVH {same[0]} vs dense {same[1]} on the same draws")
+    full = {"same_draws": same, "tris": field.num_tris}
+    originals = vertex_warp.warp_directions, vertex_warp.warp_pixel_samples
+    for route, scene in (("lbvh", accel), ("dense", field)):
+        sel = b1 if route == "dense" else None
+        vertex_grad(scene, fcam, n_walls, 1, spp, b, True, wts, select=sel)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for v in spans.values():
+            v.clear()
+        vertex_warp.warp_directions = timed("warp", originals[0])
+        vertex_warp.warp_pixel_samples = timed("warp", originals[1])
+        try:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            vertex_grad(scene, fcam, n_walls, 2, spp, b, True, wts, select=sel)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            vertex_warp.warp_directions, vertex_warp.warp_pixel_samples = originals
+        ms = e0.elapsed_time(e1)
+        r = {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "warp_fwd_ms": sum(a.elapsed_time(z) for a, z in spans["warp"]), "warp_calls": len(spans["warp"])}
+        if route == "dense":
+            r.update(b1_ms=sum(a.elapsed_time(z) for a, z in spans["b1"]), b1_calls=len(spans["b1"]))
+        ads, t0 = [], time.perf_counter()
+        while time.perf_counter() - t0 < WARP_SECONDS:
+            ads.append(vertex_grad(scene, fcam, n_walls, 100 + len(ads), spp, b, True, wts, select=sel))
+        ads = np.array(ads)
+        r.update(k=len(ads), mean=float(ads.mean()), sem=float(ads.std() / np.sqrt(len(ads))),
+                 s_per_estimate=(time.perf_counter() - t0) / len(ads))
+        if not (np.all(np.isfinite(ads)) and r["mean"] != 0.0):
+            raise SystemExit(f"full-width warped gradient ({route}): estimates not finite or mean zero")
+        full[route] = r
+        log(f"  full width ({route}): {field.num_tris} tris, {size}x{size}, {spp} spp, {b} bounces: {r}")
+    out["full_width"] = full
+    log(f"  {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
@@ -1355,6 +1647,10 @@ def main() -> int:
     if sys.argv[1:] == ["--xla"]:
         build.build_all(build.KERNELS.values())
         print(json.dumps({"xla": xla_phase(dev, smi)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--warp"]:
+        build.build_all(build.KERNELS.values())
+        print(json.dumps({"warp": warp_phase(dev, smi)}), flush=True)
         return 0
 
     # ---- 2. build, and the first launch ----------------------------------
@@ -1745,6 +2041,11 @@ def main() -> int:
     xla = xla_phase(dev, smi)
     log(f"phase 12: {time.perf_counter() - t0} s")
 
+    # ---- 13. the warp estimators -------------------------------------------
+    t0 = time.perf_counter()
+    warp = warp_phase(dev, smi)
+    log(f"phase 13: {time.perf_counter() - t0} s")
+
     kernels = [
         {
             "name": "render",
@@ -1809,6 +2110,14 @@ def main() -> int:
                                                      "plain_ms", "bound_ms", "bound_by", "issue_bound")},
             "library_ms": None,
             "shape": xla["path_intersect"]["shape"] + ", intersect_kernel<true,false> (the dots in the XLA order)",
+            "warp_path": {
+                "launches": warp["launches"],
+                "path": "a warped vertex gradient (diff/vertex_warp.py through render/wavefront.py), the shadow "
+                        f"scene of examples/inverse_geometry.py, 16x16, 8 spp ({warp['passes']} pass of "
+                        "render_tile_xyz), 3 bounces: a launch a pass and bounce forward and another in the "
+                        "checkpoint's recompute",
+                "full_width_b1_share": warp["full_width"]["dense"]["b1_ms"] / warp["full_width"]["dense"]["ms"],
+            },
             "default_order": {
                 "max_abs_err": isect_err,
                 "ms": i_ms,

@@ -150,9 +150,13 @@ def generate_rays(
     ``stratify=(idx, g)`` places the sample in stratum ``idx`` of a g x g
     subdivision of the pixel instead (get_ray_stratified_sample,
     rendering.cu:89-118). The sums are fused as XLA's CPU backend fuses the
-    JAX expressions (ops/fp32.py)."""
-    if screen_warp is not None:
-        raise NotImplementedError("screen_warp belongs to the vertex-warp estimator, not ported yet (ROADMAP A10)")
+    JAX expressions (ops/fp32.py).
+
+    ``screen_warp(fx, fy)`` -> (fx', fy', det): the vertex-gradient screen
+    warp (diff/vertex_warp.py::warp_pixel_samples) of the continuous pixel
+    coordinates px + jitter, py + jitter (camera.py:119-147). The pixel is
+    then pixel00 + fx' du + fy' dv, and (origins, directions, det) are
+    returned; the caller multiplies det into the sample."""
     jit = jitter - 0.5
     if stratify is not None:
         idx, g = stratify
@@ -160,9 +164,15 @@ def generate_rays(
         u = jitter * cell
         jit = torch.stack([(idx % g) * cell + u[:, 0] - 0.5, (idx // g) * cell + u[:, 1] - 0.5], dim=-1)
     n = px.shape[0]
+    det = None
+    if screen_warp is not None:
+        fx, fy, det = screen_warp(px.to(torch.float32) + jit[:, 0], py.to(torch.float32) + jit[:, 1])
+        terms = ((fx, cam.pixel_delta_u), (fy, cam.pixel_delta_v))
+    else:
+        terms = ((px.to(torch.float32), cam.pixel_delta_u), (py.to(torch.float32), cam.pixel_delta_v),
+                 (jit[:, 0], cam.pixel_delta_u), (jit[:, 1], cam.pixel_delta_v))
     pixel = cam.pixel00_loc.expand(n, 3)
-    for s, delta in ((px.to(torch.float32), cam.pixel_delta_u), (py.to(torch.float32), cam.pixel_delta_v),
-                     (jit[:, 0], cam.pixel_delta_u), (jit[:, 1], cam.pixel_delta_v)):
+    for s, delta in terms:
         pixel = fma(s[:, None], delta, pixel)
     if cam.defocus_angle > 0.0:
         if disk is None:
@@ -171,4 +181,6 @@ def generate_rays(
         origin = fma(disk[:, 1:2], cam.defocus_disk_v, origin)
     else:
         origin = cam.center.expand(n, 3)
+    if det is not None:
+        return origin, pixel - origin, det
     return origin, pixel - origin

@@ -36,6 +36,9 @@ TRIS = 2
 
 SCENE_NAMES = {CORNELL: "cornell", PRISM: "prism", TRIS: "tris"}
 
+# the blue of build_diffuse_field (a colour of the stock palette)
+DIFFUSE_FIELD_BLUE = (0.12, 0.15, 0.45)
+
 # material row of the BK7 dielectric in build_tri_field(glass=True)
 # (builder order: white, red, green, metal, light, then the preset)
 FIELD_GLASS_MAT = 5
@@ -267,6 +270,12 @@ def _scene_arrays(soup: TriSoup, mats: Materials) -> dict:
     return d
 
 
+def scene_from_soup(soup: TriSoup, mats: Materials, device: torch.device | str = "cuda") -> Scene:
+    """A Scene of a finished soup and its materials under a black sky, on
+    ``device`` (scenes.py:64 ``_scene_from`` with background (0, 0, 0))."""
+    return scene_from_numpy(_scene_arrays(soup, mats), device)
+
+
 @functools.lru_cache(maxsize=None)
 def _host_scene(scene_id: int) -> dict:
     """The scene's arrays as numpy, built once per process."""
@@ -283,13 +292,13 @@ def expected_sizes(scene_id: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=4)
-def _host_tri_field(n_tris: int, seed: int, glass: bool) -> dict:
+def _host_tri_field(n_tris: int, seed: int, glass: bool, diffuse: bool = False) -> dict:
     rng = np.random.RandomState(seed)
     mb = MaterialBuilder()
     white = mb.lambertian((0.73, 0.73, 0.73))
     red = mb.lambertian((0.65, 0.05, 0.05))
     green = mb.lambertian((0.12, 0.45, 0.15))
-    metal = mb.metallic((0.8, 0.85, 0.88), 0.0)
+    metal = mb.lambertian(DIFFUSE_FIELD_BLUE) if diffuse else mb.metallic((0.8, 0.85, 0.88), 0.0)
     light = mb.emissive((1.0, 1.0, 1.0), 7.0)
 
     soup = TriSoup()
@@ -329,3 +338,13 @@ def build_tri_field(
     row ``FIELD_GLASS_MAT``) instead of red. Above DENSE_CUTOFF triangles
     it renders through the leaf sweep (ops/cuda/render_kernel.py)."""
     return scene_from_numpy(_host_tri_field(int(n_tris), int(seed), bool(glass)), device)
+
+
+def build_diffuse_field(n_tris: int = 520, seed: int = 0, device: torch.device | str = "cuda") -> Scene:
+    """``build_tri_field``'s layout with its metal replaced by a lambertian
+    blue: every surface diffuse, so that the warped-area estimator sees
+    every silhouette family (the JAX package's chip-scale vertex-warp case,
+    scratch/r5_vwarp_chip.py:40-76, with the palette's blue DIFFUSE_FIELD_BLUE
+    in place of that script's (0.2, 0.3, 0.6), which the palette lacks;
+    ops/rgb2spec.py)."""
+    return scene_from_numpy(_host_tri_field(int(n_tris), int(seed), False, True), device)

@@ -7,8 +7,10 @@ Port of spectral_tpu/parallel/render.py (``render_image_sharded`` :41,
 1 x 1 mesh: ``train_step`` differentiates the XLA-style renderer by
 autograd, ``train_step_fused`` runs the fused kernels. Row and sample
 sharding over several devices, with all-reduced loss and gradients, is
-ROADMAP A11; vertex leaves and the warps wait for the warp estimators
-(A10).
+ROADMAP A11. Vertex leaves re-derive the intersection arrays
+(diff/geometry.py), and ``vertex_warp`` / ``fuzz_warp`` turn on the
+warped-area estimators (diff/vertex_warp.py, diff/fuzz_warp.py) that make
+their gradients and the fuzz gradients exact.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import dataclasses
 import torch
 
 from ..diff.fast import render_rays_diff_fused
+from ..diff.geometry import scene_with_vertices
+from ..diff.vertex_warp import edges_from_vertices
 from ..models.materials import tabulate
 from ..render.wavefront import chunk_pixels, render_tile_xyz
 from ..utils.prng import fold
@@ -27,21 +31,27 @@ _VERTEX_KEYS = ("v0", "v1", "v2")
 
 
 def trainable_params(scene, include_vertices: bool = False) -> dict:
-    """The differentiable material leaves: sigmoid-spectrum coefficients,
-    emission powers, metal fuzz and Sellmeier coefficients."""
-    if include_vertices:
-        raise NotImplementedError("vertex leaves need the warp estimators, not ported yet (ROADMAP A10)")
+    """The differentiable scene leaves (render.py:234): sigmoid-spectrum
+    coefficients, emission powers, metal fuzz, Sellmeier coefficients and,
+    with ``include_vertices``, the triangle vertices v0, v1, v2 (exact
+    gradients through the warped-area estimator)."""
     m = scene.materials
-    return {k: getattr(m, k) for k in _MATERIAL_KEYS}
+    p = {k: getattr(m, k) for k in _MATERIAL_KEYS}
+    if include_vertices:
+        p.update({k: getattr(scene, k) for k in _VERTEX_KEYS})
+    return p
 
 
 def apply_params(scene, params: dict):
-    """The scene with its material leaves replaced and the SPD table
-    re-tabulated."""
-    if any(k in params for k in _VERTEX_KEYS):
-        raise NotImplementedError("vertex leaves need the warp estimators, not ported yet (ROADMAP A10)")
-    mats = dataclasses.replace(scene.materials, **params)
-    return dataclasses.replace(scene, materials=tabulate(mats))
+    """The scene under ``params`` (render.py:253): material leaves replace
+    the materials' and re-tabulate the SPDs; vertex leaves (all three)
+    re-derive the intersection arrays differentiably
+    (diff/geometry.py::scene_with_vertices). An LBVH is kept as it is."""
+    mats = dataclasses.replace(scene.materials, **{k: v for k, v in params.items() if k not in _VERTEX_KEYS})
+    scene = dataclasses.replace(scene, materials=tabulate(mats))
+    if "v0" in params:
+        scene = scene_with_vertices(scene, params["v0"], params["v1"], params["v2"])
+    return scene
 
 
 def _one_device(n_devices: int, what: str) -> None:
@@ -57,13 +67,13 @@ def render_image_sharded(scene, cam, key: int, samples_per_pixel: int, bounce_li
     renderer (render.py:41) on one device: the JAX function's shard at
     tile 0 and sample 0, keyed by ``fold(key, 0, 0)`` as that shard folds
     its mesh coordinates (render.py:80). ``draws``: see
-    render/wavefront.py::render_tile_xyz."""
+    render/wavefront.py::render_tile_xyz, as are ``vertex_warp`` and
+    ``fuzz_warp`` (EdgeSets)."""
     _one_device(n_devices, "render_image_sharded")
-    if vertex_warp is not None or fuzz_warp is not None:
-        raise NotImplementedError("vertex_warp and fuzz_warp: the warp estimators are not ported yet (ROADMAP A10)")
     h, w = cam.image_height, cam.image_width
     px, py = chunk_pixels(0, 0, w, h, scene.normal.device)
-    xyz = render_tile_xyz(scene, cam, px, py, fold(key, 0, 0), samples_per_pixel, bounce_limit, draws=draws)
+    xyz = render_tile_xyz(scene, cam, px, py, fold(key, 0, 0), samples_per_pixel, bounce_limit,
+                          vertex_warp=vertex_warp, fuzz_warp=fuzz_warp, draws=draws)
     return xyz.reshape(h, w, 3)
 
 
@@ -74,13 +84,22 @@ def train_step(params: dict, scene, cam, target_xyz: torch.Tensor, key: int, sam
     autograd (render.py:352): render the image under ``params`` (material
     leaves), loss = mean((xyz / spp - target)^2) against ``target_xyz``
     [H, W, 3] (mean-per-sample XYZ), and p - lr * g for every leaf.
-    Returns (new_params, loss)."""
+    Returns (new_params, loss). ``params`` may hold vertex leaves
+    (``trainable_params(include_vertices=True)``); with ``vertex_warp``
+    their gradients go through the warped-area estimator, whose edges are
+    those of the live leaves (render.py:379-383), and with ``fuzz_warp``
+    the fuzz gradients through the fuzz-sphere warp, on the scene's edges
+    (:384-386)."""
     _one_device(n_devices, "train_step")
-    if vertex_warp or fuzz_warp:
-        raise NotImplementedError("vertex_warp and fuzz_warp: the warp estimators are not ported yet (ROADMAP A10)")
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        xyz = render_image_sharded(apply_params(scene, leaves), cam, key, samples_per_pixel, bounce_limit,
+        s = apply_params(scene, leaves)
+        vw = fz = None
+        if vertex_warp and "v0" in leaves:
+            vw = edges_from_vertices(leaves["v0"], leaves["v1"], leaves["v2"])
+        if fuzz_warp:
+            fz = edges_from_vertices(s.v0, s.v1, s.v2)
+        xyz = render_image_sharded(s, cam, key, samples_per_pixel, bounce_limit, vertex_warp=vw, fuzz_warp=fz,
                                    draws=draws)
         loss = torch.mean((xyz / float(samples_per_pixel) - target_xyz) ** 2)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True, materialize_grads=True)

@@ -20,7 +20,7 @@ two schedulers share one source of path arithmetic and give equal paths.
 The intersect kernel takes any number of triangles, in tiles, and the
 XLA-style renderer's dot order; that renderer selects its nearest hits
 with it, and its render equals the one whose selection is the plain
-version's.
+version's, warped gradients included.
 """
 
 from __future__ import annotations
@@ -160,8 +160,8 @@ def test_intersect_kernel_xla_order_bit_equal(cuda_device, n, n_tris):
 @pytest.mark.parametrize("scene_id", (CORNELL, PRISM))
 def test_xla_render_selects_with_the_intersect_kernel(cuda_device, scene_id):
     """The XLA-style render launches the intersect kernel once a bounce and
-    sample, and equals the render whose selection is the plain version's;
-    render_chunk_diff's backward (that render's VJP) is finite."""
+    pass of samples, and equals the render whose selection is the plain
+    version's; render_chunk_diff's backward (that render's VJP) is finite."""
     import dataclasses
 
     from spectral_tpu_torch.diff import render_chunk_diff
@@ -174,7 +174,8 @@ def test_xla_render_selects_with_the_intersect_kernel(cuda_device, scene_id):
     with torch.no_grad():
         got = wavefront.render_chunk(scene, cam, 3, 0, 0, 32, 16, spp, bounces)
         torch.cuda.synchronize()
-        assert build.INTERSECT.launches == before + spp * bounces
+        passes = -(-spp // wavefront.samples_per_pass(32 * 16, spp))
+        assert build.INTERSECT.launches == before + passes * bounces
         plain = wavefront.render_chunk(
             scene, cam, 3, 0, 0, 32, 16, spp, bounces, select=lambda o, d, t: nearest_hit(o, d, t, xla=True)
         )
@@ -184,6 +185,58 @@ def test_xla_render_selects_with_the_intersect_kernel(cuda_device, scene_id):
     out = render_chunk_diff(mats, scene, cam, 3, 0, 0, 32, 16, spp, bounces)
     out[..., 1].sum().backward()
     assert torch.isfinite(coeffs.grad).all() and coeffs.grad.abs().max() > 0
+
+
+def _warped_gradient(dev, case: str, select=None):
+    """d(sum Y)/d(th) of a warped render with the moving triangles at x
+    offset th = 0.1: the shadow scene of examples/inverse_geometry.py at its
+    shape (16x16, 8 spp, 3 bounces), or the all-diffuse 520-triangle field
+    with every box moving (a 32x16 crop of its 64x64 frame, 2 spp, 3
+    bounces)."""
+    from spectral_tpu_torch.diff import scene_with_vertices
+    from spectral_tpu_torch.diff.vertex_warp import edges_from_vertices
+    from spectral_tpu_torch.examples import inverse_geometry
+    from spectral_tpu_torch.models.scenes import build_diffuse_field
+    from spectral_tpu_torch.render import wavefront
+
+    if case == "shadow":
+        scene, cam = inverse_geometry.build(dev)
+        first, frame, spp = inverse_geometry.FIRST_OCCLUDER_TRI, (0, 0, 16, 16), 8
+    else:
+        scene, cam = build_diffuse_field(520, 0, dev), scene_camera(CORNELL, 64, 64, dev)
+        first, frame, spp = 12, (16, 24, 32, 16), 2
+    move = (torch.arange(scene.num_tris, device=dev) >= first).float()[:, None] * torch.tensor([1.0, 0.0, 0.0],
+                                                                                             device=dev)
+    th = torch.tensor(0.1, device=dev, requires_grad=True)
+    vs = [getattr(scene, k) + th * move for k in ("v0", "v1", "v2")]
+    out = wavefront.render_chunk(scene_with_vertices(scene, *vs), cam, 9, *frame, spp, 3,
+                                 vertex_warp=edges_from_vertices(*vs), select=select)
+    (g,) = torch.autograd.grad(out[..., 1].sum(), th)
+    return out.detach(), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("shadow", "field"))
+def test_warped_gradient_selects_with_the_intersect_kernel(cuda_device, case):
+    """A warped vertex gradient with the intersect kernel selecting (twice
+    a pass of samples and bounce: the forward and the checkpoint's
+    recompute) equals, bit for bit, the same gradient with the plain
+    selection (deterministic algorithms on: the backward's index sums
+    otherwise accumulate in any order)."""
+    from spectral_tpu_torch.render import wavefront
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = build.INTERSECT.launches
+        out, g = _warped_gradient(cuda_device, case)
+        torch.cuda.synchronize()
+        spp, n = (8, 16 * 16) if case == "shadow" else (2, 32 * 16)
+        assert build.INTERSECT.launches == before + 2 * -(-spp // wavefront.samples_per_pass(n, spp)) * 3
+        plain_out, plain_g = _warped_gradient(cuda_device, case, lambda o, d, t: nearest_hit(o, d, t, xla=True))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(out, plain_out) and out.max() > 0
+    assert torch.equal(g, plain_g) and torch.isfinite(g) and float(g) != 0.0
 
 
 def _final_state(n: int, spp: int, dev, seed: int):

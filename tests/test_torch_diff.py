@@ -326,18 +326,29 @@ def test_train_step_fused():
 
 
 def test_params_from_numpy_and_apply():
-    jmats = jax_build_scene(CORNELL).materials
+    """The JAX leaves, vertices included, carried by params_from_numpy, and
+    an EdgeSet built from numpy arrays."""
+    from spectral_tpu_torch.diff import derive_tri_arrays
+    from spectral_tpu_torch.diff.vertex_warp import EdgeSet, edges_from_vertices
+
+    jscene = jax_build_scene(CORNELL)
+    jmats = jscene.materials
     d = {k: np.asarray(getattr(jmats, k)) for k in ("coeffs", "emission_power", "fuzz", "sellmeier_b", "sellmeier_c")}
+    d.update({k: np.asarray(getattr(jscene, k)) for k in ("v0", "v1", "v2")})
     p = params_from_numpy(d, "cpu")
-    own = trainable_params(build_scene(CORNELL, "cpu"))
+    own = trainable_params(build_scene(CORNELL, "cpu"), include_vertices=True)
     assert set(p) == set(own)
     for k in p:
         assert p[k].dtype == torch.float32
         np.testing.assert_allclose(p[k].numpy(), own[k].numpy(), rtol=1e-6)
-    scene = apply_params(build_scene(CORNELL, "cpu"), dict(p, emission_power=p["emission_power"] * 2))
+    moved = p["v1"] + 1.0
+    scene = apply_params(build_scene(CORNELL, "cpu"), dict(p, emission_power=p["emission_power"] * 2, v1=moved))
     assert torch.equal(scene.materials.emission_power, p["emission_power"] * 2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        trainable_params(scene, include_vertices=True)
+    assert torch.equal(scene.normal, derive_tri_arrays(p["v0"], moved, p["v2"])["normal"])
+    edges = EdgeSet(*(torch.from_numpy(np.concatenate([d[a], d[b], d[c]])) for a, b, c in
+                      (("v0", "v1", "v2"), ("v1", "v2", "v0"))))
+    for x, y in zip(edges, edges_from_vertices(p["v0"], p["v1"], p["v2"])):
+        assert torch.equal(x, y)
 
 
 def test_residual_matres_overwrites_garbage():

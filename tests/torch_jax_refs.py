@@ -25,9 +25,11 @@ Cases: ``replay_tris`` (tests/test_torch_grad.py), ``intersect_cornell``
 ``xla_camera``, ``xla_spectrum``, ``xla_hits``, ``xla_scatter``,
 ``xla_cornell``, ``xla_prism``, ``xla_train`` and ``xla_misc``
 (tests/test_torch_xla.py)
-and ``lbvh`` (tests/test_torch_lbvh.py). The XLA-style cases store the
-draws of the JAX renderer's key schedule beside its outputs, so that the
-port renders the same paths (``xla_draws``).
+``lbvh`` (tests/test_torch_lbvh.py), and the warp estimators'
+``warp_geometry``, ``warp_funcs``, ``warp_screen``, ``warp_shadow``,
+``warp_fuzz`` and ``warp_train`` (tests/test_torch_warp.py). The XLA-style
+and warped cases store the draws of the JAX renderer's key schedule beside
+its outputs, so that the port renders the same paths (``xla_draws``).
 """
 
 from __future__ import annotations
@@ -781,11 +783,302 @@ def lbvh_jax(x: dict) -> dict:
     return out
 
 
+# ---- the warp estimators (diff/geometry.py, diff/vertex_warp.py, -------
+# ---- diff/fuzz_warp.py) and the warped XLA-style renderer -----------------
+
+
+def warp_scene_jax(name: str):
+    """The warp scenes of tests/test_diff.py (JAX package): (scene, camera,
+    first moving triangle). "screen" (:739, a dark quad against an emissive
+    one), "shadow" (:757, an occluder's shadow on a lit floor; also
+    examples/inverse_geometry.py's scene), "fuzz" (:991, a fuzzy metal floor
+    reflecting a light; also examples/inverse_fuzz.py's), "mirror" (:930, a
+    mirror slab under a blue-gray sky)."""
+    from spectral_tpu.models.camera import make_camera
+    from spectral_tpu.models.geometry import TriSoup
+    from spectral_tpu.models.materials import MaterialBuilder
+    from spectral_tpu.models.scenes import PRISM, _scene_from, scene_camera
+
+    mb = MaterialBuilder(replicate_reference_bugs=name != "mirror")
+    soup = TriSoup()
+    if name == "screen":
+        dark = mb.lambertian((0.1, 0.1, 0.1))
+        light = mb.emissive((1.0, 1.0, 1.0), 4.0)
+        soup.quad((-4.0, -4.0, 3.0), (8.0, 0.0, 0.0), (0.0, 8.0, 0.0), light)
+        soup.quad((-3.0, -2.0, 1.0), (3.0, 0.0, 0.0), (0.0, 4.0, 0.0), dark)
+        cam = make_camera(16, 16, vfov=60.0, lookfrom=(0, 0, -2), lookat=(0, 0, 0))
+        return _scene_from(soup, mb.build(), (0.0, 0.0, 0.0)), cam, 2
+    if name == "shadow":
+        white = mb.lambertian((0.8, 0.8, 0.8))
+        dark = mb.lambertian((0.05, 0.05, 0.05))
+        light = mb.emissive((1.0, 1.0, 1.0), 6.0)
+        soup.quad((-4.0, 0.0, -4.0), (8.0, 0.0, 0.0), (0.0, 0.0, 8.0), white)
+        soup.quad((-1.0, 3.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), light)
+        soup.quad((-2.0, 1.5, -1.5), (2.0, 0.0, 0.0), (0.0, 0.0, 3.0), dark)
+        cam = make_camera(16, 16, vfov=70.0, lookfrom=(0.0, 1.0, -3.0), lookat=(0.0, 0.0, 0.5))
+        return _scene_from(soup, mb.build(), (0.0, 0.0, 0.0)), cam, 4
+    if name == "fuzz":
+        metal = mb.metallic((0.9, 0.9, 0.9), 0.25)
+        light = mb.emissive((1.0, 1.0, 1.0), 5.0)
+        soup.quad((-4.0, 0.0, -4.0), (8.0, 0.0, 0.0), (0.0, 0.0, 8.0), metal)
+        soup.quad((0.5, 2.5, -0.5), (1.2, 0.0, 0.0), (0.0, 0.0, 1.2), light)
+        cam = make_camera(16, 16, vfov=60.0, lookfrom=(0.0, 1.2, -3.0), lookat=(0.5, 0.0, 0.0))
+        return _scene_from(soup, mb.build(), (0.0, 0.0, 0.0)), cam, metal
+    if name == "mirror":
+        mirror = mb.metallic((0.9, 0.9, 0.9), fuzz=0.0)
+        soup.box((-400, -400, -220), (955, 955, -200), mirror)
+        return _scene_from(soup, mb.build(), (0.5, 0.6, 0.8)), scene_camera(PRISM, 16, 16), 0
+    raise ValueError(name)
+
+
+def warp_geometry_inputs() -> dict:
+    """The vertices of CORNELL, PRISM and TRIS, and CORNELL's moved by
+    normal(0, 2) noise of seed 13."""
+    from spectral_tpu.models.scenes import CORNELL, PRISM, TRIS
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+
+    out = {}
+    for name, sid in (("cornell", CORNELL), ("prism", PRISM), ("tris", TRIS)):
+        s = jax_build_scene(sid)
+        out[name] = {k: np.asarray(getattr(s, k)) for k in ("v0", "v1", "v2")}
+    rng = np.random.default_rng(13)
+    out["moved"] = {k: (v + rng.normal(0.0, 2.0, v.shape)).astype(np.float32) for k, v in out["cornell"].items()}
+    return out
+
+
+def warp_geometry_jax(x: dict) -> dict:
+    """derive_tri_arrays (diff/geometry.py:38), jitted, on each set."""
+    import jax
+
+    from spectral_tpu.diff.geometry import derive_tri_arrays
+
+    f = jax.jit(derive_tri_arrays)
+    return {f"{name}.{k}": np.asarray(v) for name, vs in x.items()
+            for k, v in f(vs["v0"], vs["v1"], vs["v2"]).items()}
+
+
+def warp_funcs_inputs() -> dict:
+    """Seed 14: CORNELL's vertices and 16x16 camera; 512 pixel samples over
+    the frame (and 2 px past it); 512 bounce origins in the box, unit
+    normals and unit directions about them; 512 fuzz-sphere samples with
+    unit mirror directions, fuzz in [0.05, 0.6]; seeded weights of each
+    output."""
+    from spectral_tpu.models.scenes import CORNELL
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+    from spectral_tpu.models.scenes import scene_camera as jax_scene_camera
+
+    rng = np.random.default_rng(14)
+    n = 512
+    s = jax_build_scene(CORNELL)
+
+    def unit(k):
+        v = rng.normal(size=(k, 3))
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+    normal = unit(n)
+    w0 = normal + unit(n)
+    return dict(
+        v0=np.asarray(s.v0), v1=np.asarray(s.v1), v2=np.asarray(s.v2),
+        cam=jax_camera_arrays(jax_scene_camera(CORNELL, 16, 16)),
+        fx=rng.uniform(-2.5, 17.5, n).astype(np.float32), fy=rng.uniform(-2.5, 17.5, n).astype(np.float32),
+        o=rng.uniform(5.0, 550.0, (n, 3)).astype(np.float32), n=normal,
+        w0=(w0 / np.linalg.norm(w0, axis=1, keepdims=True)).astype(np.float32),
+        s0=unit(n), r=unit(n), fuzz=rng.uniform(0.05, 0.6, n).astype(np.float32),
+        wts=rng.normal(size=(n, 4)).astype(np.float32), frozen=np.float32(0.3),
+    )
+
+
+def warp_funcs_jax(x: dict) -> dict:
+    """warp_pixel_samples, warp_directions (vertex_warp.py:172, :256) and
+    warp_fuzz (fuzz_warp.py:143, also with frozen_fuzz), and the gradients
+    of sum(outputs * wts) with respect to the vertices (and for
+    warp_directions the origins and normals), and to the fuzz."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.diff.fuzz_warp import warp_fuzz
+    from spectral_tpu.diff.vertex_warp import edges_from_vertices, warp_directions, warp_pixel_samples
+
+    cam = _jax_camera(x["cam"])
+    wts = jnp.asarray(x["wts"])
+    verts = tuple(jnp.asarray(x[k]) for k in ("v0", "v1", "v2"))
+
+    def screen(v0, v1, v2):
+        fx, fy, det = warp_pixel_samples(cam, edges_from_vertices(v0, v1, v2), jnp.asarray(x["fx"]),
+                                         jnp.asarray(x["fy"]))
+        return jnp.sum(fx * wts[:, 0] + fy * wts[:, 1] + det * wts[:, 2]), (fx, fy, det)
+
+    def sphere(v0, v1, v2, o, n):
+        wp, fac = warp_directions(o, n, jnp.asarray(x["w0"]), edges_from_vertices(v0, v1, v2))
+        return jnp.sum(wp * wts[:, :3]) + jnp.sum(fac * wts[:, 3]), (wp, fac)
+
+    def fuzz(f, frozen=None):
+        sw, det = warp_fuzz(*(jnp.asarray(x[k]) for k in ("s0", "o", "r", "n")), f, edges_from_vertices(*verts),
+                            frozen_fuzz=frozen)
+        return jnp.sum(sw * wts[:, :3]) + jnp.sum(det * wts[:, 3]), (sw, det)
+
+    out = {}
+    (_, (fx, fy, det)), g = jax.jit(jax.value_and_grad(screen, argnums=(0, 1, 2), has_aux=True))(*verts)
+    out.update(fx=fx, fy=fy, det=det, **{f"screen.d_v{i}": g[i] for i in range(3)})
+    (_, (wp, fac)), g = jax.jit(jax.value_and_grad(sphere, argnums=(0, 1, 2, 3, 4), has_aux=True))(
+        *verts, jnp.asarray(x["o"]), jnp.asarray(x["n"]))
+    out.update(wp=wp, factor=fac, **{f"sphere.d_{k}": v for k, v in zip(("v0", "v1", "v2", "o", "n"), g)})
+    for tag, frozen in (("fuzz", None), ("frozen", float(x["frozen"]))):
+        (_, (sw, fdet)), g = jax.jit(jax.value_and_grad(lambda f: fuzz(f, frozen), has_aux=True))(
+            jnp.asarray(x["fuzz"]))
+        out.update({f"{tag}.s": sw, f"{tag}.det": fdet, f"{tag}.d_fuzz": g})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+# the warped renders: (scene, spp, bounces, seed); 16x16 frames
+WARP_RENDERS = {"warp_screen": ("screen", 4, 2, 0), "warp_shadow": ("shadow", 4, 3, 1), "warp_fuzz": ("fuzz", 4, 2, 2)}
+
+
+def _warp_render_inputs(case: str) -> dict:
+    name, spp, bounces, seed = WARP_RENDERS[case]
+    scene, cam, _ = warp_scene_jax(name)
+    cot = np.random.default_rng(99).normal(size=(16, 16, 3)).astype(np.float32)
+    return dict(scene=jax_arrays(scene), cam=jax_camera_arrays(cam), spp=np.int32(spp), bounces=np.int32(bounces),
+                seed=np.int32(seed), cot=cot)
+
+
+def _warp_render_jax(x: dict) -> dict:
+    """The warped JAX render_chunk of the whole 16x16 frame and its draws;
+    the gradients of sum(xyz * cot) with respect to the vertices (under
+    vertex_warp, the edges of the live vertices) or, for the fuzz scene, to
+    the materials' fuzz (under fuzz_warp, the scene's edges)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.diff.geometry import scene_with_vertices
+    from spectral_tpu.diff.vertex_warp import edges_from_vertices
+    from spectral_tpu.render.wavefront import render_chunk
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    spp, bounces = int(x["spp"]), int(x["bounces"])
+    key = jax.random.PRNGKey(int(x["seed"]))
+    cot = jnp.asarray(x["cot"])
+    fuzz = bool(np.any(np.asarray(x["scene"]["materials"]["mat_type"]) == 1))
+    if fuzz:
+        edges = edges_from_vertices(scene.v0, scene.v1, scene.v2)
+
+        def render(f):
+            s = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, fuzz=f))
+            return render_chunk(s, cam, key, 0, 0, 16, 16, spp, bounces, fuzz_warp=edges)
+
+        leaves = (scene.materials.fuzz,)
+        names = ("d_fuzz",)
+    else:
+        def render(v0, v1, v2):
+            s = scene_with_vertices(scene, v0, v1, v2)
+            return render_chunk(s, cam, key, 0, 0, 16, 16, spp, bounces,
+                                vertex_warp=edges_from_vertices(v0, v1, v2))
+
+        leaves = (scene.v0, scene.v1, scene.v2)
+        names = ("d_v0", "d_v1", "d_v2")
+    grads = jax.grad(lambda *a: jnp.sum(render(*a) * cot), argnums=tuple(range(len(leaves))))(*leaves)
+    out = dict(xyz=render(*leaves), **dict(zip(names, grads)))
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out["xyz_s"] = _warp_samples_jax(scene, cam, key, spp, bounces, fuzz)
+    out.update(xla_draws(key, 256, spp, bounces))
+    return out
+
+
+def _warp_samples_jax(scene, cam, key, spp: int, bounces: int, fuzz: bool) -> np.ndarray:
+    """Each sample's XYZ [spp, 256, 3] of the warped render, as the sample
+    body of render_tile_xyz (wavefront.py:180-204) computes it: the port's
+    tests count the sample-rays that leave JAX's paths with these."""
+    import jax
+
+    from spectral_tpu.diff.vertex_warp import edges_from_vertices, warp_pixel_samples
+    from spectral_tpu.models.camera import generate_rays
+    from spectral_tpu.ops.spectrum import hero_wavelengths, spectrum_to_xyz
+    from spectral_tpu.render.wavefront import trace_paths
+    from spectral_tpu.utils.constants import N_RAY_WAVELENGTHS
+    from spectral_tpu.utils.prng import fold
+
+    edges = edges_from_vertices(scene.v0, scene.v1, scene.v2)
+    ys, xs = np.meshgrid(np.arange(16, dtype=np.int32), np.arange(16, dtype=np.int32), indexing="ij")
+    px, py = xs.ravel(), ys.ravel()
+
+    @jax.jit
+    def one(k):
+        k_ray, k_lam, k_path = jax.random.split(k, 3)
+        det = 1.0
+        if fuzz:
+            o, d = generate_rays(cam, px, py, k_ray)
+        else:
+            o, d, det = generate_rays(cam, px, py, k_ray,
+                                      screen_warp=lambda fx, fy: warp_pixel_samples(cam, edges, fx, fy))
+            det = det[:, None]
+        lam = hero_wavelengths(k_lam, (256,), N_RAY_WAVELENGTHS)
+        state = trace_paths(scene, o, d, lam, k_path, bounces, None if fuzz else edges, edges if fuzz else None)
+        return spectrum_to_xyz(state.wavelengths, state.power, state.n_valid) * det
+
+    return np.stack([np.asarray(one(fold(key, s))) for s in range(spp)])
+
+
+def warp_screen_inputs() -> dict:
+    """The screen scene, 16x16, 4 spp, 2 bounces, PRNGKey(0), a cotangent
+    of seed 99."""
+    return _warp_render_inputs("warp_screen")
+
+
+def warp_shadow_inputs() -> dict:
+    """The shadow scene, 16x16, 4 spp, 3 bounces, PRNGKey(1)."""
+    return _warp_render_inputs("warp_shadow")
+
+
+def warp_fuzz_inputs() -> dict:
+    """The fuzz scene, 16x16, 4 spp, 2 bounces, PRNGKey(2)."""
+    return _warp_render_inputs("warp_fuzz")
+
+
+warp_screen_jax = warp_shadow_jax = warp_fuzz_jax = _warp_render_jax
+
+
+def warp_train_inputs() -> dict:
+    """One train_step(vertex_warp=True) on the shadow scene, 16x16, 4 spp,
+    3 bounces, PRNGKey(5), lr 1, from trainable_params(include_vertices=
+    True) with the occluder moved +0.35 in x (examples/inverse_geometry.py),
+    against a target of seed 6."""
+    scene, cam, occ = warp_scene_jax("shadow")
+    move = np.zeros((scene.num_tris, 3), np.float32)
+    move[occ:, 0] = 0.35
+    verts = {k: np.asarray(getattr(scene, k)) + move for k in ("v0", "v1", "v2")}
+    target = np.random.default_rng(6).uniform(0.0, 0.3, (16, 16, 3)).astype(np.float32)
+    return dict(scene=jax_arrays(scene), cam=jax_camera_arrays(cam), **verts, target=target, spp=np.int32(4),
+                bounces=np.int32(3), seed=np.int32(5), lr=np.float32(1.0))
+
+
+def warp_train_jax(x: dict) -> dict:
+    """JAX's train_step(vertex_warp=True) on a 1 x 1 mesh with every leaf of
+    trainable_params(include_vertices=True), the vertices moved; the draws
+    of its one shard."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.parallel.mesh import make_mesh
+    from spectral_tpu.parallel.render import train_step, trainable_params
+    from spectral_tpu.utils.prng import fold
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    key = jax.random.PRNGKey(int(x["seed"]))
+    params = dict(trainable_params(scene, include_vertices=True), **{k: jnp.asarray(x[k]) for k in ("v0", "v1", "v2")})
+    spp, bounces = int(x["spp"]), int(x["bounces"])
+    new, loss = train_step(params, scene, cam, jnp.asarray(x["target"]), key, make_mesh(1), spp, bounces,
+                           float(x["lr"]), vertex_warp=True)
+    out = dict(loss=np.asarray(loss), **{f"new.{k}": np.asarray(v) for k, v in new.items()})
+    out.update(xla_draws(fold(key, 0, 0), cam.image_width * cam.image_height, spp, bounces))
+    return out
+
+
 CASES = {
     name: (globals()[f"{name}_inputs"], globals()[f"{name}_jax"])
     for name in ("replay_tris", "intersect_cornell", "prism_render", "prism_flip", "fused_prism", "field_mega",
                  "field_sorted", "field_replay", "xla_camera", "xla_spectrum", "xla_hits", "xla_scatter",
-                 "xla_cornell", "xla_prism", "xla_train", "xla_misc", "lbvh")
+                 "xla_cornell", "xla_prism", "xla_train", "xla_misc", "lbvh", "warp_geometry", "warp_funcs",
+                 "warp_screen", "warp_shadow", "warp_fuzz", "warp_train")
 }
 
 
