@@ -120,25 +120,53 @@ Phases, each fatal on failure:
    estimate (CUDA events, warm), its peak memory, the warp's forward ms and
    the intersect kernel's ms in it (events around each call), and the AD
    mean +- sem of as many estimates as fit in WARP_SECONDS (all finite, the
-   mean nonzero).
+   mean nonzero);
+14. the sharded paths on torch.distributed (parallel/), one process per
+   rank, each started by this script (``--rank SPEC``) after the build, so
+   that no rank builds a kernel: a world of two gloo ranks that share the
+   one card and all-reduce CUDA tensors, with the meshes (2, 1) and (1, 2),
+   then a world of one NCCL rank (the 1 x 1 mesh, its collectives on the
+   card). On each mesh, every rank: the default render (Cornell 600x600,
+   500 spp, 10 bounces) and the 10k field frame through the sorted
+   scheduler and the leaf megakernel (render_image_sharded_pallas), each
+   bit-equal to what one process composes from the shards' one-device
+   renders at the shard seeds; train_step_fused on the training frame
+   (B3 + B4) and on the field frame (the sorted residual forward, and the
+   leaf megakernel's, + B4), its loss within 1e-6 of the composition's and
+   its gradient within REPLAY_REL of the true gradient composed in one
+   process by autograd over the shards, the ratio printed (1, where JAX's
+   fused step gives n_sample: ROADMAP C8); render_image_sharded and
+   train_step (the XLA-style renderer, B1) at 32x32, 8 spp, 4 bounces,
+   within 1e-6 of their composition; every kernel launched on every rank;
+   examples/inverse_rendering.py in full on the (1, 2) mesh and on one
+   device, with its wall time and its own verdict (SPD error under 0.03),
+   each taking at least EXAMPLE_SHARE of the SPD error away. Each path runs
+   twice; each rank's ms (CUDA events around the second call, the first
+   beside it), the wall ms of its collectives (the device synchronized
+   around each; the wait for the group's slowest rank included) and its
+   peak memory stand beside the one-device numbers of the same frames:
+   processes that share one card, not scaling. A rank that fails, or a world that runs
+   out of WORLD_SECONDS, fails the phase.
 
 Launch counts are set to 0 just before each of phases 5-7, 10-11 and the
-XLA-style render, the CLI and each render_chunk_diff pass of phase 12, and
-the warped gradient of phase 13, and read just after. Prints a
-``{"kernels": [...]}`` line after phase 13, with each kernel's launches on
-its path (the render megakernel's from phase 5 and, beside them, from
-render_chunk_diff's forward, the fused kernels' from phase 6, the leaf
-megakernel's and the sorted kernels' from phase 10, the leaf residual
-form's from phase 11, the intersect kernel's from phase 12, whose times are
-those of its instantiation on that path, with phase 4's beside them, and
-its launches on phase 13's warped gradient),
-then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Exits
-non-zero, printing no result, without a CUDA device or outside a checkout
-of the repository.
+XLA-style render, the CLI and each render_chunk_diff pass of phase 12, the
+warped gradient of phase 13 and each call of phase 14 on each rank, and
+read just after. Prints a ``{"kernels": [...]}`` line after phase 14, with
+each kernel's launches on its path (the render megakernel's from phase 5
+and, beside them, from render_chunk_diff's forward, the fused kernels'
+from phase 6, the leaf megakernel's and the sorted kernels' from phase 10,
+the leaf residual form's from phase 11, the intersect kernel's from phase
+12, whose times are those of its instantiation on that path, with phase
+4's beside them, and its launches on phase 13's warped gradient) and each
+kernel's launches per rank on each mesh of phase 14, then the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing
+no result, without a CUDA device or outside a checkout of the repository.
 
 ``python3 chip_smoke.py --xla`` runs phase 12 alone (after the build) and
 prints what it measured as one JSON line; ``--warp`` does the same for
-phase 13.
+phase 13 and ``--parallel`` for phase 14. ``--parallel-cards``, on a
+machine with more than one card, runs phase 14's paths in one NCCL world
+of a rank on each card instead.
 
 ``python3 chip_smoke.py --leaf-sizes`` instead times both large-scene
 schedulers on the 10k and 200k fields at leaf sizes 8 to 128 (the sweep
@@ -1346,8 +1374,9 @@ BLOCK_W_HEX = "33e5a65569b2f89b"
 # the full-width case (scratch/r5_vwarp_chip.py:40-95): the 520-triangle
 # all-diffuse field at 64x64, 8 spp, 3 bounces, every box moving in +x,
 # 8 x 8 block-constant weights, gradients at th = 0; the seconds of
-# estimates a route
-WARP_SIZE, WARP_SPP, WARP_BOUNCES, WARP_BLOCK, WARP_SECONDS = 64, 8, 3, 8, 60.0
+# estimates a route (30, down from 60 with phase 14's ~70 s: the whole
+# script took ~600 s on a slow host with 60)
+WARP_SIZE, WARP_SPP, WARP_BOUNCES, WARP_BLOCK, WARP_SECONDS = 64, 8, 3, 8, 30.0
 
 
 def signs(hex_bits: str) -> np.ndarray:
@@ -1603,6 +1632,406 @@ def warp_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---- phase 14: the sharded paths on torch.distributed ------------------------
+# the default frame (config.py:25-33) and phase 12's training shape
+# (examples/inverse_rendering.py), with the seeds of phase 14's paths
+PAR_SIZE, PAR_SPP, PAR_BOUNCES, PAR_SEED = 600, 500, 10, 2024
+XLA_TRAIN = (32, 8, 4)
+# the meshes of the two-rank gloo world, which share the one card, and the
+# time each world has
+GLOO_MESHES = ((2, 1), (1, 2))
+WORLD_SECONDS = 400
+# the share of the white wall's SPD error that examples/inverse_rendering.py
+# must take away in its 120 steps. Its own verdict (SPD error under 0.03,
+# printed) is not a reliable gate: JAX's example ends at 0.0315, 0.0316,
+# 0.0346 and 0.0258 (84-88% recovered) on 1, 2, 4 and 8 CPU devices
+EXAMPLE_SHARE = 0.8
+# the XLA-style paths and the losses against their composition (relative
+# to the largest value)
+PAR_XLA_REL, PAR_LOSS_REL = 1e-6, 1e-6
+
+
+def par_problem(dev) -> dict:
+    """Phase 14's scenes, cameras, targets and starting parameters, built
+    the same in every process: Cornell and the 10k field; the default
+    frame, the field frame, the training frame and the XLA-style training
+    shape; targets rendered on one device at the true materials; the white
+    (Cornell's wall 3, the field's material 0) third coefficient + 1.5."""
+    from spectral_tpu_torch.models.scenes import CORNELL, build_scene, build_tri_field, scene_camera
+    from spectral_tpu_torch.parallel import render_image_sharded, render_image_sharded_pallas
+
+    size, spp, bounces = XLA_TRAIN
+    p = {"cornell": build_scene(CORNELL, dev), "field": build_tri_field(FIELD_TRIS, 0, device=dev),
+         "cam": scene_camera(CORNELL, PAR_SIZE, PAR_SIZE, dev), "fcam": scene_camera(CORNELL, FIELD_W, FIELD_H, dev),
+         "tcam": scene_camera(CORNELL, TRAIN_W, TRAIN_H, dev), "xcam": scene_camera(CORNELL, size, size, dev)}
+    with torch.no_grad():
+        p["t_target"] = render_image_sharded_pallas(p["cornell"], p["tcam"], TRAIN_SEED, TRAIN_SPP,
+                                                    TRAIN_BOUNCES) / TRAIN_SPP
+        p["f_target"] = render_image_sharded_pallas(p["field"], p["fcam"], FIELD_SEED, FIELD_SPP,
+                                                    FIELD_BOUNCES) / FIELD_SPP
+        p["x_target"] = render_image_sharded(p["cornell"], p["xcam"], 0, spp, bounces) / spp
+    for name, scene, row in (("t_params", "cornell", 3), ("f_params", "field", 0), ("x_params", "cornell", 3)):
+        p[name] = {k: getattr(p[scene].materials, k).clone() for k in ("coeffs", "emission_power")}
+        p[name]["coeffs"][row, 2] += 1.5
+    return p
+
+
+def par_renders(p) -> dict:
+    """The image paths: name -> (scene, camera, seed or key, spp, bounces,
+    sched; None for the XLA-style renderer)."""
+    size, spp, bounces = XLA_TRAIN
+    return {
+        "render": (p["cornell"], p["cam"], PAR_SEED, PAR_SPP, PAR_BOUNCES, "sorted"),
+        "field_sorted": (p["field"], p["fcam"], FIELD_SEED, FIELD_SPP, FIELD_BOUNCES, "sorted"),
+        "field_mega": (p["field"], p["fcam"], FIELD_SEED, FIELD_SPP, FIELD_BOUNCES, "mega"),
+        "xla_render": (p["cornell"], p["xcam"], 0, spp, bounces, None),
+    }
+
+
+def par_steps(p) -> dict:
+    """The training paths: name -> (params, scene, camera, target, seed or
+    key, spp, bounces, lr, sched; None for the autograd train_step)."""
+    size, spp, bounces = XLA_TRAIN
+    t = (p["cornell"], p["tcam"], p["t_target"], TRAIN_SEED, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_LR)
+    f = (p["field"], p["fcam"], p["f_target"], FIELD_SEED, FIELD_SPP, FIELD_BOUNCES, FIELD_LR)
+    return {
+        "fused_cornell": (p["t_params"], *t, "sorted"),
+        "fused_field": (p["f_params"], *f, "sorted"),
+        "fused_field_mega": (p["f_params"], *f, "mega"),
+        "xla_train": (p["x_params"], p["cornell"], p["xcam"], p["x_target"], 1, spp, bounces, XLA_TRAIN_LR, None),
+    }
+
+
+def par_timed(mesh, fn):
+    """fn()'s value and, on this rank: its ms from CUDA events, the wall ms
+    of its collectives (the device synchronized around each), their count,
+    the peak memory and the launches of each kernel."""
+    from spectral_tpu_torch.ops.cuda import build
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if mesh is not None:
+        mesh.collective_s, mesh.collectives = 0.0, 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    value = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return value, {
+        "ms": start.elapsed_time(end),
+        "collective_ms": 0.0 if mesh is None else 1e3 * mesh.collective_s,
+        "collectives": 0 if mesh is None else mesh.collectives,
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "launches": {k.name: k.launches for k in build.KERNELS.values() if k.launches},
+    }
+
+
+def par_twice(mesh, fn):
+    """fn()'s first value, with the par_timed stats of a second call and
+    the first call's ms and collective ms (which hold the warm-up: lazy
+    CUDA modules, a backend's first communicator)."""
+    value, first = par_timed(mesh, fn)
+    _, stats = par_timed(mesh, fn)
+    stats.update(first_ms=first["ms"], first_collective_ms=first["collective_ms"])
+    return value, stats
+
+
+def par_run(p, mesh) -> dict:
+    """Every path of phase 14 twice on ``mesh`` (None: one device, no
+    process group): the value of the first call (on the host) and the
+    par_twice stats; for the training paths also the loss and the
+    gradients of the step (``fused_loss_and_grads`` / ``loss_and_grads``,
+    run after the timed steps)."""
+    from spectral_tpu_torch.parallel import (
+        fused_loss_and_grads, loss_and_grads, render_image_sharded, render_image_sharded_pallas, train_step,
+        train_step_fused,
+    )
+
+    out = {}
+    for name, (scene, cam, seed, spp, bounces, sched) in par_renders(p).items():
+        if sched is None:
+            fn = lambda: render_image_sharded(scene, cam, seed, spp, bounces, mesh=mesh)  # noqa: E731
+        else:
+            fn = lambda: render_image_sharded_pallas(scene, cam, seed, spp, bounces, mesh=mesh, sched=sched)  # noqa: E731
+        with torch.no_grad():
+            img, stats = par_twice(mesh, fn)
+        out[name] = {"image": img.cpu(), "stats": stats}
+    for name, (params, scene, cam, target, seed, spp, bounces, lr, sched) in par_steps(p).items():
+        if sched is None:
+            fn = lambda: train_step(params, scene, cam, target, seed, spp, bounces, lr, mesh=mesh)  # noqa: E731
+            grad_fn = lambda: loss_and_grads(params, scene, cam, target, seed, spp, bounces, mesh=mesh)  # noqa: E731
+        else:
+            fn = lambda: train_step_fused(params, scene, cam, target, seed, spp, bounces, lr, mesh=mesh,  # noqa: E731
+                                          sched=sched)
+            grad_fn = lambda: fused_loss_and_grads(params, scene, cam, target, seed, spp, bounces,  # noqa: E731
+                                                   mesh=mesh, sched=sched)
+        (new, loss), stats = par_twice(mesh, fn)
+        g_loss, grads = grad_fn()
+        out[name] = {"loss": float(loss), "grad_loss": float(g_loss), "grads": {k: g.cpu() for k, g in grads.items()},
+                     "finite": bool(all(torch.isfinite(v).all() for v in new.values())), "stats": stats}
+    return out
+
+
+def par_example(mesh, dev, log) -> dict:
+    """examples/inverse_rendering.py in full on ``mesh`` (None: ``dev``),
+    with its wall time."""
+    from spectral_tpu_torch.examples import inverse_rendering
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = inverse_rendering.main(mesh=mesh, device=dev, log=log)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "spd_err0": r["spd_err0"], "spd_err": r["spd_err"],
+            "share": 1.0 - r["spd_err"] / r["spd_err0"], "recovered": r["recovered"], "first_loss": r["losses"][0],
+            "last_loss": r["losses"][-1]}
+
+
+def rank_main(spec_path: str) -> int:
+    """One rank of a phase-14 world (``--rank SPEC``): joins the world of
+    SPECTRAL_COORD / SPECTRAL_NPROC / SPECTRAL_PROC_ID on the spec's
+    backend, runs every path on each of the spec's meshes (the example too
+    on the meshes the spec names) and saves what it got for the parent."""
+    import torch.distributed as dist
+
+    from spectral_tpu_torch.parallel import init_distributed, mesh_of_shape
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    init_distributed(backend=spec["backend"], device=spec["device"])
+    try:
+        rank = dist.get_rank()
+        dev = torch.device("cuda", rank % torch.cuda.device_count()) if spec["device"] == "cuda" else torch.device("cpu")
+        p = par_problem(dev)
+        out = {"rank": rank, "meshes": {}}
+        for shape in spec["meshes"]:
+            mesh = mesh_of_shape(*shape, device=dev)
+            mesh.timed = True
+            res = par_run(p, mesh)
+            for name, r in res.items():
+                log(f"{spec['backend']} rank {rank}, mesh {tuple(shape)}, {name}: {r['stats']}")
+            if list(shape) in spec["example_meshes"]:
+                res["example"] = par_example(mesh, dev, lambda *_: None)
+                log(f"{spec['backend']} rank {rank}, mesh {tuple(shape)}, inverse_rendering: {res['example']}")
+            out["meshes"][str(tuple(shape))] = res
+        torch.save(out, os.path.join(spec["dir"], f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_world(n: int, backend: str, meshes, example_meshes, root: str, device: str = "cuda") -> list[dict]:
+    """Runs ``n`` ranks of this script (``--rank``) on ``device`` in a world
+    of ``backend`` with a file:// rendezvous, waits for all of them within
+    WORLD_SECONDS, prints their logs and returns each rank's results.
+    Exits if a rank fails or the time runs out; kills every rank it
+    started either way."""
+    d = tempfile.mkdtemp(prefix=f"world_{backend}_", dir=root)
+    spec_path = os.path.join(d, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"backend": backend, "device": device, "meshes": [list(m) for m in meshes],
+                   "example_meshes": [list(m) for m in example_meshes], "dir": d}, f)
+    env = dict(os.environ, SPECTRAL_COORD=f"file://{d}/rendezvous", SPECTRAL_NPROC=str(n))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", spec_path],
+                                          env=dict(env, SPECTRAL_PROC_ID=str(r)), stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, WORLD_SECONDS - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r in range(n):
+        with open(os.path.join(d, f"rank{r}.log")) as f:
+            text = f.read()
+        for line in text.splitlines()[-60:]:
+            log(f"  [{backend} rank {r}] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit(f"phase 14: a rank of the {backend} world failed or ran out of time "
+                         f"(exit codes {[p.returncode for p in procs]})")
+    log(f"  {backend} world of {n}: {seconds} s, process start and the CUDA context included")
+    return [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(n)]
+
+
+def par_composed_image(name, spec, shape):
+    """What one process composes from the shards' one-device renders: each
+    tile's sample shards summed in rank order, the tiles stacked."""
+    from functools import reduce
+
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_chunk
+    from spectral_tpu_torch.parallel.render import RENDER_SEED_STRIDE
+    from spectral_tpu_torch.render.wavefront import chunk_pixels, render_tile_xyz
+    from spectral_tpu_torch.utils.prng import fold
+
+    scene, cam, seed, spp, bounces, sched = spec
+    nt, ns = shape
+    h, w = cam.image_height, cam.image_width
+    rows, lspp = h // nt, spp // ns
+    tiles = []
+    with torch.no_grad():
+        for ti in range(nt):
+            if sched is None:
+                px, py = chunk_pixels(0, ti * rows, w, rows, scene.normal.device)
+                parts = [render_tile_xyz(scene, cam, px, py, fold(seed, ti, si), lspp, bounces).reshape(rows, w, 3)
+                         for si in range(ns)]
+            else:
+                parts = [render_chunk(scene, cam, seed + (ti * ns + si) * RENDER_SEED_STRIDE, 0, ti * rows, w, rows,
+                                      lspp, bounces, sched=sched) for si in range(ns)]
+            tiles.append(reduce(torch.add, parts))
+    return torch.cat(tiles).cpu()
+
+
+def par_composed_grads(spec, shape):
+    """The true loss and gradient composed in one process by autograd over
+    the shards' one-device renders (the fused kernels, or the XLA-style
+    renderer with the shards' keys fold(key, ti, si)): the sample shards
+    summed, each tile's part of the loss summed over the tiles."""
+    from functools import reduce
+
+    from spectral_tpu_torch.diff import render_rays_diff_fused
+    from spectral_tpu_torch.parallel import apply_params
+    from spectral_tpu_torch.parallel.render import FUSED_SEED_STRIDE
+    from spectral_tpu_torch.render.wavefront import chunk_pixels, render_tile_xyz
+    from spectral_tpu_torch.utils.prng import fold
+
+    params, scene, cam, target, seed, spp, bounces, _, sched = spec
+    nt, ns = shape
+    h, w = cam.image_height, cam.image_width
+    rows, lspp = h // nt, spp // ns
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    total = 0.0
+    with torch.enable_grad():
+        if sched is None:
+            s = apply_params(scene, leaves)
+        else:
+            mats = dataclasses.replace(scene.materials, **leaves)
+        for ti in range(nt):
+            px, py = chunk_pixels(0, ti * rows, w, rows, scene.normal.device)
+            if sched is None:
+                parts = [render_tile_xyz(s, cam, px, py, fold(seed, ti, si), lspp, bounces) for si in range(ns)]
+                sq = (reduce(torch.add, parts).reshape(rows, w, 3) / float(spp) - target[ti * rows:(ti + 1) * rows]) ** 2
+                total = total + torch.sum(sq) / (h * w * 3)
+            else:
+                parts = [render_rays_diff_fused(mats, scene, cam, px.float(), py.float(),
+                                                seed + (ti * ns + si) * FUSED_SEED_STRIDE, lspp, bounces, sched=sched)
+                         for si in range(ns)]
+                img = reduce(torch.add, parts).reshape(rows, w, 3) / spp
+                total = total + torch.sum((img - target[ti * rows:(ti + 1) * rows]) ** 2)
+        grads = torch.autograd.grad(total, list(leaves.values()))
+    loss = float(total.detach()) if sched is None else float(total.detach()) / (h * w * 3)
+    return loss, {k: g.cpu() for k, g in zip(leaves, grads)}
+
+
+def parallel_phase(dev, smi: str, cards: int = 1) -> dict:
+    """Phase 14: the sharded paths on torch.distributed. Returns what the
+    kernels line and PERF.md report. With ``cards`` > 1
+    (``--parallel-cards``): one NCCL world of a rank on each card instead,
+    on the meshes factor_devices(cards), (cards, 1) and (1, cards), without
+    the example; an image whose group has more than two ranks is held to
+    PAR_XLA_REL, since such an all-reduce may associate its sums otherwise
+    than the composition."""
+    from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.parallel import factor_devices
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    if cards == 1:
+        gloo = spawn_world(2, "gloo", GLOO_MESHES, [(1, 2)], root, dev.type)
+        nccl = spawn_world(1, "nccl", [(1, 1)], [], root, dev.type)
+        worlds = [("gloo", shape, gloo) for shape in GLOO_MESHES] + [("nccl", (1, 1), nccl)]
+        log("phase 14 (two gloo ranks share the one card, on CUDA tensors; a one-rank NCCL world): times are of "
+            "processes sharing one card, not scaling")
+    else:
+        meshes = list(dict.fromkeys([factor_devices(cards), (cards, 1), (1, cards)]))
+        ranks = spawn_world(cards, "nccl", meshes, [], root, dev.type)
+        worlds = [("nccl", shape, ranks) for shape in meshes]
+        log(f"phase 14 on {cards} cards, an NCCL rank on each")
+
+    p = par_problem(dev)
+    one = par_run(p, None)
+    one_example = par_example(None, dev, lambda *_: None) if cards == 1 else None
+    out = {"one_device": {k: v["stats"] for k, v in one.items()}, "worlds": {}, "launches": {}}
+    out["one_device"]["example"] = one_example
+    renders, steps = par_renders(p), par_steps(p)
+    expected = {k.name for k in build.KERNELS.values()}
+    for backend, shape, ranks in worlds:
+        key = f"{backend} {shape}"
+        res = [r["meshes"][str(tuple(shape))] for r in ranks]
+        summary = {}
+        for name, spec in renders.items():
+            want = par_composed_image(name, spec, shape)
+            if spec[5] is None or max(shape) > 2:
+                err = max(float((r[name]["image"] - want).abs().max()) for r in res) / float(want.abs().max())
+                ok = err <= PAR_XLA_REL
+            else:
+                err = 0.0 if all(torch.equal(r[name]["image"], want) for r in res) else float("inf")
+                ok = err == 0.0
+            summary[name] = {"rel_err": err, "ranks": [r[name]["stats"] for r in res]}
+            log(f"{key} {name}: against the composition {'bit-equal' if err == 0.0 else err}; one device "
+                f"{one[name]['stats']['ms']} ms; ranks {[r[name]['stats']['ms'] for r in res]} ms, collectives "
+                f"{[r[name]['stats']['collective_ms'] for r in res]} ms, peak "
+                f"{[r[name]['stats']['peak_mib'] for r in res]} MiB (one device {one[name]['stats']['peak_mib']})")
+            if not ok:
+                raise SystemExit(f"phase 14: {key} {name} differs from its composition ({err})")
+        for name, spec in steps.items():
+            loss, grads = par_composed_grads(spec, shape)
+            tol = PAR_XLA_REL if spec[8] is None else REPLAY_REL
+            rel = {}
+            for r in res:
+                got = r[name]
+                if not got["finite"] or abs(got["grad_loss"] - loss) > PAR_LOSS_REL * abs(loss) \
+                        or abs(got["loss"] - loss) > PAR_LOSS_REL * abs(loss):
+                    raise SystemExit(f"phase 14: {key} {name} loss {got['loss']} / {got['grad_loss']} against {loss}")
+                for k, want in grads.items():
+                    scale = float(want.abs().max())
+                    rel[k] = max(rel.get(k, 0.0), float((got["grads"][k] - want).abs().max()) / max(scale, 1e-30))
+            g, want = res[0][name]["grads"]["coeffs"], grads["coeffs"]
+            ratio = float((g * want).sum() / (want * want).sum())
+            summary[name] = {"rel_err": rel, "ratio": ratio, "loss": loss, "ranks": [r[name]["stats"] for r in res]}
+            log(f"{key} {name}: loss {res[0][name]['loss']} (composed {loss}), gradient against the true one "
+                f"composed in one process {rel} of each leaf's largest, ratio {ratio} (1, not n_sample = {shape[1]}); "
+                f"one device {one[name]['stats']['ms']} ms; ranks {[r[name]['stats']['ms'] for r in res]} ms, "
+                f"collectives {[r[name]['stats']['collective_ms'] for r in res]} ms, peak "
+                f"{[r[name]['stats']['peak_mib'] for r in res]} MiB (one device {one[name]['stats']['peak_mib']})")
+            if any(v > tol for v in rel.values()) or abs(ratio - 1.0) > tol:
+                raise SystemExit(f"phase 14: {key} {name} gradient is not the true one ({rel}, ratio {ratio})")
+        launches = []
+        for r in res:
+            n = {}
+            for name in (*renders, *steps):
+                for k, v in r[name]["stats"]["launches"].items():
+                    n[k] = n.get(k, 0) + v
+            launches.append(n)
+        missing = [sorted(expected - set(n)) for n in launches]
+        log(f"{key}: launches per rank {launches}")
+        if any(missing):
+            raise SystemExit(f"phase 14: {key}: kernels not launched on a rank: {missing}")
+        if "example" in res[0]:
+            summary["example"] = [r["example"] for r in res]
+            log(f"{key} inverse_rendering: {summary['example']}; one device {one_example}")
+            if not all(e["share"] >= EXAMPLE_SHARE and e["last_loss"] < e["first_loss"] for e in summary["example"]):
+                raise SystemExit(f"phase 14: inverse_rendering recovered less than {EXAMPLE_SHARE} on the {key} mesh")
+        out["worlds"][key] = summary
+        out["launches"][key] = launches
+    log(f"one device inverse_rendering: {one_example}")
+    if one_example is not None and (one_example["share"] < EXAMPLE_SHARE
+                                    or one_example["last_loss"] >= one_example["first_loss"]):
+        raise SystemExit(f"phase 14: inverse_rendering recovered less than {EXAMPLE_SHARE} on one device")
+    log(f"  {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
@@ -1633,6 +2062,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 3:
+        return rank_main(sys.argv[2])
 
     dev = torch.device("cuda")
     torch.zeros(1, device=dev)
@@ -1651,6 +2082,16 @@ def main() -> int:
     if sys.argv[1:] == ["--warp"]:
         build.build_all(build.KERNELS.values())
         print(json.dumps({"warp": warp_phase(dev, smi)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        build.build_all(build.KERNELS.values())
+        print(json.dumps({"parallel": parallel_phase(dev, smi)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--parallel-cards"]:
+        if torch.cuda.device_count() < 2:
+            raise SystemExit("--parallel-cards needs more than one card")
+        build.build_all(build.KERNELS.values())
+        print(json.dumps({"parallel_cards": parallel_phase(dev, smi, torch.cuda.device_count())}), flush=True)
         return 0
 
     # ---- 2. build, and the first launch ----------------------------------
@@ -2046,6 +2487,11 @@ def main() -> int:
     warp = warp_phase(dev, smi)
     log(f"phase 13: {time.perf_counter() - t0} s")
 
+    # ---- 14. the sharded paths on torch.distributed -------------------------
+    t0 = time.perf_counter()
+    par = parallel_phase(dev, smi)
+    log(f"phase 14: {time.perf_counter() - t0} s")
+
     kernels = [
         {
             "name": "render",
@@ -2221,6 +2667,9 @@ def main() -> int:
             "shape": f"the integrate step (the launch and the spp sum): {f_samples} sample-rays, {f_rays} pixels",
         },
     ]
+    for entry in kernels:
+        entry["phase14_launches_per_rank"] = {w: [n.get(entry["name"], 0) for n in ranks]
+                                              for w, ranks in par["launches"].items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

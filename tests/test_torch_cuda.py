@@ -20,7 +20,8 @@ two schedulers share one source of path arithmetic and give equal paths.
 The intersect kernel takes any number of triangles, in tiles, and the
 XLA-style renderer's dot order; that renderer selects its nearest hits
 with it, and its render equals the one whose selection is the plain
-version's, warped gradients included.
+version's, warped gradients included. Two gloo ranks that share the card
+render a sharded image (parallel/render.py) equal to its composition.
 """
 
 from __future__ import annotations
@@ -679,3 +680,29 @@ def test_field_train_step_on_card(cuda_device):
     assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3 * (bounces - 1), 3, 3]
     assert losses[0] > losses[1] > losses[2], losses
     assert all(torch.isfinite(v).all() for v in params.values())
+
+
+@pytest.mark.cuda
+def test_sharded_render_on_two_gloo_ranks_equals_composition(cuda_device, tmp_path):
+    """render_image_sharded_pallas on two gloo ranks that share the card
+    (tests/torch_parallel_worker.py --card; a 2 x 1 mesh, CUDA tensors
+    all-reduced by gloo): every rank's image bit-equal to the shards'
+    one-device dense renders composed here (the kernels built first, so the
+    ranks do not build them twice)."""
+    import torch_parallel_worker as worker
+
+    from spectral_tpu_torch.ops.cuda.render_kernel import render_chunk
+    from spectral_tpu_torch.parallel.render import RENDER_SEED_STRIDE
+
+    build.build_all(build.KERNELS.values())
+    ranks = worker.spawn(2, ["--card", str(tmp_path)], tmp_path, 300)
+    (w, h), spp, bounces, seed = worker.CARD_RUN
+    scene = build_scene(CORNELL, cuda_device)
+    cam = scene_camera(CORNELL, w, h, cuda_device)
+    rows = h // 2
+    want = torch.cat([render_chunk(scene, cam, seed + ti * RENDER_SEED_STRIDE, 0, ti * rows, w, rows, spp, bounces)
+                      for ti in range(2)]).cpu().numpy()
+    assert want.max() > 0.0
+    for r, out in enumerate(ranks):
+        assert tuple(out["coords"]) == (r, 0)
+        np.testing.assert_array_equal(out["image"], want)

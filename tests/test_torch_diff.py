@@ -58,7 +58,7 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     render_rays,
     render_rays_residuals,
 )
-from spectral_tpu_torch.parallel import apply_params, train_step_fused, trainable_params
+from spectral_tpu_torch.parallel import Mesh, apply_params, train_step_fused, trainable_params
 from spectral_tpu_torch.utils.constants import LAMBDA_MAX, LAMBDA_MIN
 
 import torch_jax_refs as refs
@@ -321,8 +321,11 @@ def test_train_step_fused():
         params, loss = train_step_fused(params, scene, cam, target, seed, spp, bounces, lr=lr)
         losses.append(float(loss))
     assert losses[0] > losses[1] > losses[2] > 0, losses
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_step_fused(params, scene, cam, target, seed, spp, bounces, n_devices=4)
+    # a mesh whose extents do not divide the height (16 rows over 3 tiles)
+    # or the spp (4 samples over 3) raises before anything is rendered
+    for shape in ((3, 1), (1, 3)):
+        with pytest.raises(ValueError, match="must divide mesh"):
+            train_step_fused(params, scene, cam, target, seed, spp, bounces, mesh=Mesh(*shape, 0, 0, "cpu"))
 
 
 def test_params_from_numpy_and_apply():

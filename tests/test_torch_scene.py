@@ -255,6 +255,8 @@ def test_port_imports_without_jax():
         "import spectral_tpu_torch.main, spectral_tpu_torch.runtime.render_manager; "
         "import spectral_tpu_torch.ops.cuda.intersect_kernel, spectral_tpu_torch.ops.cuda.grad_kernel; "
         "import spectral_tpu_torch.diff, spectral_tpu_torch.parallel; "
+        "import spectral_tpu_torch.parallel.mesh, spectral_tpu_torch.parallel.distributed; "
+        "import spectral_tpu_torch.parallel.render, spectral_tpu_torch.examples.inverse_rendering; "
         "assert not any(m == 'spectral_tpu' or m.startswith('spectral_tpu.') for m in sys.modules); "
         "print('ok')"
     )

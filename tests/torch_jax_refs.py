@@ -1073,12 +1073,175 @@ def warp_train_jax(x: dict) -> dict:
     return out
 
 
+# ---- the multi-device functions (parallel/render.py) on a 2 x 2 mesh -------
+# Cornell 16x16, 4 spp, 2 bounces: each (tile, sample) shard renders 8 rows
+# at 2 samples. Written with 4 virtual CPU devices (main() sets
+# --xla_force_host_platform_device_count).
+
+PAR_SHAPE = (2, 2)
+PAR_SIZE, PAR_SPP, PAR_BOUNCES = 16, 4, 2
+
+
+def _par_mesh():
+    import jax
+
+    from spectral_tpu.parallel.mesh import make_mesh
+
+    n = PAR_SHAPE[0] * PAR_SHAPE[1]
+    if len(jax.devices()) < n:
+        raise SystemExit(f"the par_* cases need {n} devices: set XLA_FLAGS=--xla_force_host_platform_device_count={n}")
+    mesh = make_mesh(n)
+    assert (mesh.shape["tile"], mesh.shape["sample"]) == PAR_SHAPE
+    return mesh
+
+
+def _par_draws(key, cam) -> dict:
+    """Each shard's draws (xla_draws of fold(key, ti, si), render.py:80) under
+    "shard{ti * ns + si}."."""
+    from spectral_tpu.utils.prng import fold
+
+    nt, ns = PAR_SHAPE
+    rows, local_spp = cam.image_height // nt, PAR_SPP // ns
+    out = {}
+    for ti in range(nt):
+        for si in range(ns):
+            draws = xla_draws(fold(key, ti, si), rows * cam.image_width, local_spp, PAR_BOUNCES)
+            out.update({f"shard{ti * ns + si}.{k}": v for k, v in draws.items()})
+    return out
+
+
+def _par_inputs(seed: int, lr: float, sky: bool = False) -> dict:
+    """CORNELL at PAR_SIZE (``sky``: under the gray sky), the white wall's
+    third coefficient + 1.5 (inverse_rendering.py:51), a target of seed 5,
+    PRNGKey(seed) / seed."""
+    from spectral_tpu.models.scenes import CORNELL
+    from spectral_tpu.models.scenes import build_scene as jax_build_scene
+    from spectral_tpu.models.scenes import scene_camera as jax_scene_camera
+
+    jscene = jax_build_scene(CORNELL)
+    if sky:
+        jscene = sky_lit_jax(jscene)
+    coeffs = np.array(jscene.materials.coeffs)
+    coeffs[3, 2] += 1.5
+    target = np.random.default_rng(5).uniform(0.0, 0.3, (PAR_SIZE, PAR_SIZE, 3)).astype(np.float32)
+    return dict(scene=jax_arrays(jscene), cam=jax_camera_arrays(jax_scene_camera(CORNELL, PAR_SIZE, PAR_SIZE)),
+                coeffs=coeffs, power=np.asarray(jscene.materials.emission_power), target=target,
+                mesh=np.asarray(PAR_SHAPE, np.int32), spp=np.int32(PAR_SPP), bounces=np.int32(PAR_BOUNCES),
+                seed=np.int32(seed), lr=np.float32(lr))
+
+
+def par_render_inputs() -> dict:
+    return _par_inputs(7, 0.0)
+
+
+def par_render_jax(x: dict) -> dict:
+    """JAX's render_image_sharded (render.py:41) on the 2 x 2 mesh, and each
+    shard's draws."""
+    import jax
+
+    from spectral_tpu.parallel.render import render_image_sharded
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    key = jax.random.PRNGKey(int(x["seed"]))
+    xyz = render_image_sharded(scene, cam, key, _par_mesh(), PAR_SPP, PAR_BOUNCES)
+    return dict(xyz=np.asarray(xyz), **_par_draws(key, cam))
+
+
+def par_train_inputs() -> dict:
+    return _par_inputs(3, 1e-9)
+
+
+def par_train_jax(x: dict) -> dict:
+    """JAX's train_step (render.py:352) on the 2 x 2 mesh; the gradient it
+    descends, jax.grad of its loss function (:371-391) on the same mesh,
+    since at its lr the step is below the parameters' last bit for most
+    leaves; and each shard's draws."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.parallel.render import apply_params, render_image_sharded, train_step
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    key = jax.random.PRNGKey(int(x["seed"]))
+    params = {"coeffs": jnp.asarray(x["coeffs"]), "emission_power": jnp.asarray(x["power"])}
+    target = jnp.asarray(x["target"])
+    mesh = _par_mesh()
+    new, loss = train_step(params, scene, cam, target, key, mesh, PAR_SPP, PAR_BOUNCES, float(x["lr"]))
+
+    def loss_fn(p):
+        img = render_image_sharded(apply_params(scene, p), cam, key, mesh, PAR_SPP, PAR_BOUNCES) / float(PAR_SPP)
+        return jnp.mean((img - target) ** 2)
+
+    grads = jax.jit(jax.grad(loss_fn))(params)
+    out = dict(loss=np.asarray(loss), coeffs=np.asarray(new["coeffs"]), power=np.asarray(new["emission_power"]),
+               d_coeffs=np.asarray(grads["coeffs"]), d_power=np.asarray(grads["emission_power"]))
+    out.update(_par_draws(key, cam))
+    return out
+
+
+def par_fused_inputs() -> dict:
+    """Sky-lit: in interpret mode the kernels' hardware PRNG draws zeros
+    (render_kernel.py:2003), and no such path reaches CORNELL's light in
+    PAR_BOUNCES bounces."""
+    return _par_inputs(11, 1.0, sky=True)
+
+
+def par_fused_jax(x: dict) -> dict:
+    """JAX's train_step_fused (render.py:269) on the 2 x 2 mesh in interpret
+    mode, and the gradient JAX composes from its own per-shard fused
+    renders (render_rays_diff_fused, the shard seeds of render.py:290, the
+    sample shards summed, the loss summed over tiles): the sharded step's
+    gradient, (p - new) / lr, is n_sample times the composed one (ROADMAP
+    C8)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from spectral_tpu.diff.fast import render_rays_diff_fused
+    from spectral_tpu.parallel.render import train_step_fused
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    seed, lr = int(x["seed"]), float(x["lr"])
+    target = jnp.asarray(x["target"])
+    params = {"coeffs": jnp.asarray(x["coeffs"]), "emission_power": jnp.asarray(x["power"])}
+    interpret = pltpu.InterpretParams()
+    new, loss = train_step_fused(params, scene, cam, target, seed, _par_mesh(), PAR_SPP, PAR_BOUNCES, lr,
+                                 interpret=interpret)
+
+    nt, ns = PAR_SHAPE
+    h = w = PAR_SIZE
+    rows, local_spp = h // nt, PAR_SPP // ns
+    n_local = rows * w
+    pad = (-n_local) % 1024
+
+    def composed(p):
+        mats = dataclasses.replace(scene.materials, **p)
+        total = 0.0
+        for ti in range(nt):
+            ys, xs = np.meshgrid(np.arange(rows) + ti * rows, np.arange(w), indexing="ij")
+            px = jnp.asarray(np.concatenate([xs.ravel(), np.zeros(pad)]), jnp.float32)
+            py = jnp.asarray(np.concatenate([ys.ravel(), np.zeros(pad)]), jnp.float32)
+            xyz = 0.0
+            for si in range(ns):
+                shard_seed = jnp.int32(seed + (ti * ns + si) * 7919993)
+                out = render_rays_diff_fused(mats, scene, cam, px, py, shard_seed, local_spp, PAR_BOUNCES, interpret)
+                xyz = xyz + out[:n_local]
+            img = xyz.reshape(rows, w, 3) / PAR_SPP
+            total = total + jnp.sum((img - target[ti * rows:(ti + 1) * rows]) ** 2)
+        return total
+
+    c_loss, c_grads = jax.value_and_grad(composed)(params)
+    return dict(loss=np.asarray(loss), coeffs=np.asarray(new["coeffs"]), power=np.asarray(new["emission_power"]),
+                composed_loss=np.asarray(c_loss) / (h * w * 3), composed_d_coeffs=np.asarray(c_grads["coeffs"]),
+                composed_d_power=np.asarray(c_grads["emission_power"]))
+
+
 CASES = {
     name: (globals()[f"{name}_inputs"], globals()[f"{name}_jax"])
     for name in ("replay_tris", "intersect_cornell", "prism_render", "prism_flip", "fused_prism", "field_mega",
                  "field_sorted", "field_replay", "xla_camera", "xla_spectrum", "xla_hits", "xla_scatter",
                  "xla_cornell", "xla_prism", "xla_train", "xla_misc", "lbvh", "warp_geometry", "warp_funcs",
-                 "warp_screen", "warp_shadow", "warp_fuzz", "warp_train")
+                 "warp_screen", "warp_shadow", "warp_fuzz", "warp_train", "par_render", "par_train", "par_fused")
 }
 
 
@@ -1108,5 +1271,8 @@ def main(names=()) -> int:
 
 
 if __name__ == "__main__":
+    # the par_* cases run on a 2 x 2 mesh of virtual CPU devices
+    n_dev = PAR_SHAPE[0] * PAR_SHAPE[1]
+    os.environ["XLA_FLAGS"] = f"{os.environ.get('XLA_FLAGS', '')} --xla_force_host_platform_device_count={n_dev}"
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main(tuple(sys.argv[1:])))
