@@ -146,25 +146,42 @@ Phases, each fatal on failure:
    around each; the wait for the group's slowest rank included) and its
    peak memory stand beside the one-device numbers of the same frames:
    processes that share one card, not scaling. A rank that fails, or a world that runs
-   out of WORLD_SECONDS, fails the phase.
+   out of WORLD_SECONDS, fails the phase;
+15. the general-colour rgb2spec (ops/rgb2spec.py) on CUDA tensors against
+   its CPU results (the table lookup and the LM fit of the stored case's 39
+   colours), then the last two examples as a user runs them, their gates
+   raised: examples/inverse_field.py in full (the 10k glass field, 192x96,
+   4 spp, 5 bounces, 80 Adam steps through the sorted residual forward and
+   the replay; at least 70% of the green SPD's perturbation recovered), with
+   one camera, 4 bounce and one integrate launch a step and the target, and
+   a replay a step; examples/inverse_dispersion.py --impl fused in full (260
+   steps of 8 estimates: two render launches, a residual launch and a
+   replay an estimate; |B0 - B0*| under 0.35 of its start) and --impl xla
+   for DISP_XLA_STEPS steps (not gated; 4 x 6 intersect launches an
+   estimate: a pass and bounce in each render of the CRN pair, forward and
+   in the checkpoint's recompute in the gradient factor), each with its wall
+   time, ms a step or an estimate and launch counts.
 
 Launch counts are set to 0 just before each of phases 5-7, 10-11 and the
 XLA-style render, the CLI and each render_chunk_diff pass of phase 12, the
-warped gradient of phase 13 and each call of phase 14 on each rank, and
-read just after. Prints a ``{"kernels": [...]}`` line after phase 14, with
+warped gradient of phase 13, each call of phase 14 on each rank and each
+example of phase 15, and read just after. Prints a ``{"kernels": [...]}``
+line after phase 15, with
 each kernel's launches on its path (the render megakernel's from phase 5
 and, beside them, from render_chunk_diff's forward, the fused kernels'
 from phase 6, the leaf megakernel's and the sorted kernels' from phase 10,
 the leaf residual form's from phase 11, the intersect kernel's from phase
 12, whose times are those of its instantiation on that path, with phase
 4's beside them, and its launches on phase 13's warped gradient) and each
-kernel's launches per rank on each mesh of phase 14, then the nvidia-smi
+kernel's launches per rank on each mesh of phase 14 and its launches in
+each example of phase 15, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, without a CUDA device or outside a checkout of the repository.
 
 ``python3 chip_smoke.py --xla`` runs phase 12 alone (after the build) and
 prints what it measured as one JSON line; ``--warp`` does the same for
-phase 13 and ``--parallel`` for phase 14. ``--parallel-cards``, on a
+phase 13, ``--parallel`` for phase 14 and ``--examples`` for phase 15.
+``--parallel-cards``, on a
 machine with more than one card, runs phase 14's paths in one NCCL world
 of a rank on each card instead.
 
@@ -1632,6 +1649,114 @@ def warp_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---- phase 15: the last examples, and the general-colour rgb2spec -------------
+# the colours of the stored rgb2spec case (tests/torch_jax_refs.py): 32 of
+# seed 5 in [0.05, 0.95], four grays and the three primaries
+RGB2SPEC_SEED, RGB2SPEC_GRAYS = 5, (0.0, 0.25, 0.73, 1.0)
+# the XLA-style dispersion's steps inside the script, of the example's 260
+# (8 estimates a step): a full run does not fit the script's time
+DISP_XLA_STEPS = 8
+
+
+def rgb2spec_on_card(dev) -> dict:
+    """lookup_sigmoid_coeffs and the LM fit on CUDA tensors against their
+    CPU results: the table within rtol 1e-5 / atol 1e-6, the fit's SPDs
+    within 1e-4 and its raw coefficients (grays excepted) at rtol 1e-3."""
+    from spectral_tpu_torch.ops import rgb2spec
+
+    rng = np.random.default_rng(RGB2SPEC_SEED)
+    grays = np.repeat(np.asarray(RGB2SPEC_GRAYS)[:, None], 3, axis=1)
+    rgb = torch.from_numpy(np.concatenate([rng.uniform(0.05, 0.95, (32, 3)), grays, np.eye(3)]).astype(np.float32))
+    colour = ~((rgb[:, 0] == rgb[:, 1]) & (rgb[:, 1] == rgb[:, 2]))
+    out = {}
+    for name, fn in (("lookup", rgb2spec.lookup_sigmoid_coeffs), ("lm_fit", rgb2spec.lm_fit_coeffs)):
+        host = fn(rgb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(rgb.to(dev))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        card = card.cpu()
+        spd = float((rgb2spec.spd_from_coeffs_reflectance(card) - rgb2spec.spd_from_coeffs_reflectance(host))
+                    .abs().max())
+        rel = float(((card - host).abs() / host.abs().clamp_min(1e-30))[colour].max())
+        out[name] = {"ms": ms, "spd_max_abs": spd, "coeff_max_rel": rel}
+        ok = (torch.allclose(card, host, rtol=1e-5, atol=1e-6) if name == "lookup"
+              else spd <= 1e-4 and rel <= 1e-3)
+        log(f"  rgb2spec {name} of {rgb.shape[0]} colours on the card vs the CPU: {out[name]}")
+        if not ok or not torch.isfinite(card).all():
+            raise SystemExit(f"rgb2spec {name}: the card's coefficients differ from the CPU's")
+    return out
+
+
+def examples_phase(dev, smi: str) -> dict:
+    """Phase 15: the general-colour rgb2spec on the card, then
+    examples/inverse_field.py and examples/inverse_dispersion.py (fused in
+    full, XLA-style for DISP_XLA_STEPS steps) as a user runs them, their
+    gates raised, their launches counted. Returns what the kernels line and
+    PERF.md report."""
+    from spectral_tpu_torch.examples import inverse_dispersion, inverse_field
+    from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.render import wavefront
+
+    def counted(name, fn):
+        for k in build.KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = fn(lambda m: log(f"  {name}: {m}"))
+        except AssertionError as e:
+            raise SystemExit(f"{name}: {e}")
+        torch.cuda.synchronize()
+        res["s"] = time.perf_counter() - t0
+        res["launches"] = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+        return res
+
+    out = {"rgb2spec": rgb2spec_on_card(dev)}
+    # the field: a target render, then a sorted residual forward and a replay a step
+    steps = inverse_field.STEPS
+    res = counted("inverse_field", lambda lg: inverse_field.main(steps, dev, log=lg))
+    b = inverse_field.BOUNCES
+    want = {"wavefront_camera": steps + 1, "wavefront_bounce": (steps + 1) * (b - 1),
+            "wavefront_integrate": steps + 1, "grad": steps}
+    log(f"inverse_field: {res['n_tris']} tris, {inverse_field.SIZE}x{inverse_field.SIZE // 2}, {inverse_field.SPP} "
+        f"spp, {b} bounces, {steps} steps in {res['s']:.1f} s ({res['setup_s']:.1f} s scene and target): "
+        f"{res['ms_per_step']} ms a step, {res['recovered']:.1f}% recovered, launches {res['launches']}")
+    if res["launches"] != want:
+        raise SystemExit(f"inverse_field: launches {res['launches']}, not {want}")
+    res.pop("losses")
+    out["inverse_field"] = res
+    # the dispersion, fused: two render launches (the CRN pair), a residual
+    # launch and a replay an estimate
+    steps, m = inverse_dispersion.STEPS, inverse_dispersion.M
+    res = counted("inverse_dispersion fused", lambda lg: inverse_dispersion.main("fused", steps, dev, log=lg))
+    n = steps * m
+    want = {"render": 2 * n, "render_residuals": n, "grad": n}
+    log(f"inverse_dispersion --impl fused: {steps} steps of {m} estimates in {res['s']:.1f} s, "
+        f"{res['ms_per_estimate']} ms an estimate, |B0 - B0*| {res['err0']:.4f} -> {res['err']:.4f} "
+        f"({100 * res['recovered']:.1f}% recovered), launches {res['launches']}")
+    if res["launches"] != want:
+        raise SystemExit(f"inverse_dispersion fused: launches {res['launches']}, not {want}")
+    out["inverse_dispersion_fused"] = {k: v for k, v in res.items() if k != "errs"}
+    # the dispersion, XLA-style: an intersect launch a pass and bounce in each
+    # CRN render, and forward and in the checkpoint's recompute in the factor
+    steps = DISP_XLA_STEPS
+    res = counted("inverse_dispersion xla", lambda lg: inverse_dispersion.main("xla", steps, dev, log=lg))
+    size, spp = inverse_dispersion.IMPLS["xla"]
+    px = size * (size // 2)
+    passes = -(-spp // wavefront.samples_per_pass(px, spp))
+    n = steps * m
+    want = {"intersect": 4 * passes * inverse_dispersion.BOUNCES * n}
+    log(f"inverse_dispersion --impl xla: {steps} of {inverse_dispersion.STEPS} steps ({n} estimates) in "
+        f"{res['s']:.1f} s, {res['ms_per_step']} ms a step, |B0 - B0*| {res['err0']:.4f} -> {res['err']:.4f} "
+        f"(not gated), launches {res['launches']}")
+    if res["launches"] != want or not np.isfinite(res["err"]):
+        raise SystemExit(f"inverse_dispersion xla: launches {res['launches']}, not {want}, or B0 not finite")
+    out["inverse_dispersion_xla"] = {k: v for k, v in res.items() if k != "errs"}
+    log(f"  {smi}")
+    return out
+
+
 # ---- phase 14: the sharded paths on torch.distributed ------------------------
 # the default frame (config.py:25-33) and phase 12's training shape
 # (examples/inverse_rendering.py), with the seeds of phase 14's paths
@@ -2083,6 +2208,10 @@ def main() -> int:
         build.build_all(build.KERNELS.values())
         print(json.dumps({"warp": warp_phase(dev, smi)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--examples"]:
+        build.build_all(build.KERNELS.values())
+        print(json.dumps({"examples": examples_phase(dev, smi)}), flush=True)
+        return 0
     if sys.argv[1:] == ["--parallel"]:
         build.build_all(build.KERNELS.values())
         print(json.dumps({"parallel": parallel_phase(dev, smi)}), flush=True)
@@ -2492,6 +2621,11 @@ def main() -> int:
     par = parallel_phase(dev, smi)
     log(f"phase 14: {time.perf_counter() - t0} s")
 
+    # ---- 15. the last examples, and the general-colour rgb2spec --------------
+    t0 = time.perf_counter()
+    ex = examples_phase(dev, smi)
+    log(f"phase 15: {time.perf_counter() - t0} s")
+
     kernels = [
         {
             "name": "render",
@@ -2670,6 +2804,8 @@ def main() -> int:
     for entry in kernels:
         entry["phase14_launches_per_rank"] = {w: [n.get(entry["name"], 0) for n in ranks]
                                               for w, ranks in par["launches"].items()}
+        entry["phase15_launches"] = {name: ex[name]["launches"].get(entry["name"], 0)
+                                     for name in ("inverse_field", "inverse_dispersion_fused", "inverse_dispersion_xla")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

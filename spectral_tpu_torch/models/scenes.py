@@ -36,8 +36,8 @@ TRIS = 2
 
 SCENE_NAMES = {CORNELL: "cornell", PRISM: "prism", TRIS: "tris"}
 
-# the blue of build_diffuse_field (a colour of the stock palette)
-DIFFUSE_FIELD_BLUE = (0.12, 0.15, 0.45)
+# the blue of build_diffuse_field (scratch/r5_vwarp_chip.py:51)
+DIFFUSE_FIELD_BLUE = (0.2, 0.3, 0.6)
 
 # material row of the BK7 dielectric in build_tri_field(glass=True)
 # (builder order: white, red, green, metal, light, then the preset)
@@ -257,23 +257,25 @@ def scene_camera(
     )
 
 
-def _scene_arrays(soup: TriSoup, mats: Materials) -> dict:
-    """The numpy arrays of a finished soup and its materials, black
-    background."""
+def _scene_arrays(soup: TriSoup, mats: Materials, background=(0.0, 0.0, 0.0)) -> dict:
+    """The numpy arrays of a finished soup and its materials under the
+    illuminant of the sRGB colour ``background`` (scenes.py:64)."""
     d = dict(finalize(soup))
     d["materials"] = {
         f.name: getattr(mats, f.name).numpy() for f in dataclasses.fields(Materials)
     }
     d["background_spd"] = srgb_to_illuminance_spectrum(
-        torch.zeros(3, dtype=torch.float32)
+        torch.tensor(background, dtype=torch.float32)
     ).numpy()
     return d
 
 
-def scene_from_soup(soup: TriSoup, mats: Materials, device: torch.device | str = "cuda") -> Scene:
-    """A Scene of a finished soup and its materials under a black sky, on
-    ``device`` (scenes.py:64 ``_scene_from`` with background (0, 0, 0))."""
-    return scene_from_numpy(_scene_arrays(soup, mats), device)
+def scene_from_soup(soup: TriSoup, mats: Materials, device: torch.device | str = "cuda",
+                    background=(0.0, 0.0, 0.0)) -> Scene:
+    """A Scene of a finished soup and its materials under the sky of the
+    sRGB colour ``background`` (black by default), on ``device``
+    (scenes.py:64 ``_scene_from``)."""
+    return scene_from_numpy(_scene_arrays(soup, mats, background), device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -344,7 +346,5 @@ def build_diffuse_field(n_tris: int = 520, seed: int = 0, device: torch.device |
     """``build_tri_field``'s layout with its metal replaced by a lambertian
     blue: every surface diffuse, so that the warped-area estimator sees
     every silhouette family (the JAX package's chip-scale vertex-warp case,
-    scratch/r5_vwarp_chip.py:40-76, with the palette's blue DIFFUSE_FIELD_BLUE
-    in place of that script's (0.2, 0.3, 0.6), which the palette lacks;
-    ops/rgb2spec.py)."""
+    scratch/r5_vwarp_chip.py:40-76, with its blue DIFFUSE_FIELD_BLUE)."""
     return scene_from_numpy(_host_tri_field(int(n_tris), int(seed), False, True), device)

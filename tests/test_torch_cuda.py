@@ -706,3 +706,20 @@ def test_sharded_render_on_two_gloo_ranks_equals_composition(cuda_device, tmp_pa
     for r, out in enumerate(ranks):
         assert tuple(out["coords"]) == (r, 0)
         np.testing.assert_array_equal(out["image"], want)
+
+
+@pytest.mark.cuda
+def test_rgb2spec_on_the_card_equals_the_cpu(cuda_device):
+    """The general-colour table lookup and the LM fit on CUDA tensors against
+    their CPU results: the table within rtol 1e-5 / atol 1e-6, the fit's
+    SPDs within 1e-4."""
+    from spectral_tpu_torch.ops import rgb2spec
+
+    rng = np.random.default_rng(5)
+    rgb = torch.from_numpy(np.concatenate([rng.uniform(0.05, 0.95, (12, 3)), np.eye(3)]).astype(np.float32))
+    lookup = rgb2spec.lookup_sigmoid_coeffs(rgb.to(cuda_device))
+    assert lookup.device.type == "cuda"
+    torch.testing.assert_close(lookup.cpu(), rgb2spec.lookup_sigmoid_coeffs(rgb), rtol=1e-5, atol=1e-6)
+    card, host = rgb2spec.lm_fit_coeffs(rgb.to(cuda_device)).cpu(), rgb2spec.lm_fit_coeffs(rgb)
+    spd = rgb2spec.spd_from_coeffs_reflectance
+    assert float((spd(card) - spd(host)).abs().max()) <= 1e-4

@@ -281,11 +281,16 @@ def test_cli_writes_bmp(tmp_path, scene_id):
     assert light.max() > 200 and light.mean() > 2 * lum.mean()
 
 
-def test_cli_profile_writes_trace(tmp_path, monkeypatch):
+def test_cli_profile_writes_trace(tmp_path, monkeypatch, capfd):
+    """The profiler's trace file is written. The profiler (Kineto) writes
+    to the process's fd 2 itself, past sys.stderr, so the test captures at
+    the fd level (capfd): under the run's sys-level capture those lines
+    would reach the terminal and split pytest's progress lines."""
     monkeypatch.chdir(tmp_path)
     argv = ["-xr", "8", "-ns", "1", "-bl", "2", "--no-show", "--device", "cpu", "--profile", "prof", "-t", "p"]
     assert port_main.main(argv) == 0
     assert os.path.getsize(tmp_path / "prof" / "p_trace.json") > 0
+    assert "profiler trace in" in capfd.readouterr().err
 
 
 def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):

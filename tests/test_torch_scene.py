@@ -111,8 +111,16 @@ def test_gray_closed_form_equals_jax():
 
 
 def test_colour_outside_palette_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trgb2spec.fit_sigmoid_coeffs(np.array([[0.31, 0.42, 0.17]], np.float32))
+    """A colour outside the palette no longer raises: it resolves, as in the
+    JAX package, through the general-colour table (memo, palette, table);
+    what still raises is a batch that is not of colours."""
+    rgb = np.array([[0.31, 0.42, 0.17], [0.65, 0.05, 0.05]], np.float32)
+    ours = trgb2spec.fit_sigmoid_coeffs(rgb).numpy()
+    jrgb2spec._fit_cache.clear()
+    theirs = _np(jrgb2spec.fit_sigmoid_coeffs(jnp.asarray(rgb)))
+    np.testing.assert_allclose(ours, theirs, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        trgb2spec.fit_sigmoid_coeffs(np.array([0.31, 0.42], np.float32))
 
 
 def test_spectrum_interp_and_sigmoid_equal_jax():
@@ -257,6 +265,7 @@ def test_port_imports_without_jax():
         "import spectral_tpu_torch.diff, spectral_tpu_torch.parallel; "
         "import spectral_tpu_torch.parallel.mesh, spectral_tpu_torch.parallel.distributed; "
         "import spectral_tpu_torch.parallel.render, spectral_tpu_torch.examples.inverse_rendering; "
+        "import spectral_tpu_torch.examples.inverse_field, spectral_tpu_torch.examples.inverse_dispersion; "
         "assert not any(m == 'spectral_tpu' or m.startswith('spectral_tpu.') for m in sys.modules); "
         "print('ok')"
     )

@@ -27,7 +27,12 @@ Cases: ``replay_tris`` (tests/test_torch_grad.py), ``intersect_cornell``
 (tests/test_torch_xla.py)
 ``lbvh`` (tests/test_torch_lbvh.py), and the warp estimators'
 ``warp_geometry``, ``warp_funcs``, ``warp_screen``, ``warp_shadow``,
-``warp_fuzz`` and ``warp_train`` (tests/test_torch_warp.py). The XLA-style
+``warp_fuzz`` and ``warp_train`` (tests/test_torch_warp.py), the sharded
+paths' ``par_render``, ``par_train`` and ``par_fused``
+(tests/test_torch_parallel.py), the general-colour rgb2spec's ``rgb2spec``
+(tests/test_torch_rgb2spec.py), and the first step of each of the last two
+examples, ``inverse_field`` and ``inverse_dispersion``
+(tests/test_torch_examples.py). The XLA-style
 and warped cases store the draws of the JAX renderer's key schedule beside
 its outputs, so that the port renders the same paths (``xla_draws``).
 """
@@ -1236,12 +1241,200 @@ def par_fused_jax(x: dict) -> dict:
                 composed_d_power=np.asarray(c_grads["emission_power"]))
 
 
+# ---- general-colour rgb2spec and the last two examples --------------------
+
+
+def rgb2spec_inputs() -> dict:
+    """32 colours of seed 5 in [0.05, 0.95], four grays (0 and 1 among
+    them) and the three primaries."""
+    rng = np.random.default_rng(5)
+    grays = np.repeat(np.asarray([0.0, 0.25, 0.73, 1.0])[:, None], 3, axis=1)
+    rgb = np.concatenate([rng.uniform(0.05, 0.95, (32, 3)), grays, np.eye(3)]).astype(np.float32)
+    return dict(rgb=rgb)
+
+
+def rgb2spec_jax(x: dict) -> dict:
+    """lookup_sigmoid_coeffs, jax.vmap(_fit_one), and srgb_to_spectrum and
+    roundtrip_srgb through the table and, with RGB2SPEC_EXACT=1, through
+    the LM fit (the memo cleared before each)."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.ops import rgb2spec as jr
+
+    rgb = jnp.asarray(x["rgb"])
+    out = dict(lookup=jr.lookup_sigmoid_coeffs(rgb), fit=jax.vmap(jr._fit_one)(rgb))
+    old = os.environ.get("RGB2SPEC_EXACT")
+    try:
+        for tag, exact in (("table", "0"), ("exact", "1")):
+            os.environ["RGB2SPEC_EXACT"] = exact
+            jr._fit_cache.clear()
+            spd = jr.srgb_to_spectrum(rgb)
+            out[f"spd_{tag}"], out[f"rt_{tag}"] = spd, jr.roundtrip_srgb(spd)
+    finally:
+        jr._fit_cache.clear()
+        if old is None:
+            os.environ.pop("RGB2SPEC_EXACT", None)
+        else:
+            os.environ["RGB2SPEC_EXACT"] = old
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+# examples/inverse_field.py's first step, cut to size: the 520-triangle glass
+# field at 32x16 (padded to 1024 rays with pixel (0, 0)) at the example's 4
+# spp and 5 bounces (at 2 spp and 3 bounces only the light itself is seen on
+# these planes, and the green row's gradient is 0)
+IF_TRIS, IF_W, IF_H, IF_SPP, IF_BOUNCES, IF_GREEN = 520, 32, 16, 4, 5, 2
+
+
+def _padded(w: int, h: int) -> tuple[np.ndarray, np.ndarray]:
+    n = w * h
+    pad = (-n) % 1024
+    idx = np.arange(n)
+    return (np.concatenate([idx % w, np.zeros(pad)]).astype(np.float32),
+            np.concatenate([idx // w, np.zeros(pad)]).astype(np.float32))
+
+
+def inverse_field_inputs() -> dict:
+    """The field's JAX scene arrays and camera vector, the uniform planes of
+    seed 21 over the padded rays, and the green row's perturbation."""
+    from spectral_tpu.models import scenes as jscenes
+    from spectral_tpu.ops.pallas.render_kernel import camera_vector as jax_camera_vector
+    from spectral_tpu.ops.pallas.render_kernel import n_uniforms as jax_n_uniforms
+
+    px, py = _padded(IF_W, IF_H)
+    planes = np.random.default_rng(21).uniform(size=(IF_SPP, jax_n_uniforms(IF_BOUNCES), px.shape[0]))
+    jcv = jax_camera_vector(jscenes.scene_camera(jscenes.CORNELL, IF_W, IF_H))
+    return dict(scene=jax_arrays(jscenes.build_tri_field(IF_TRIS, 0, glass=True)), cam=np.asarray(jcv),
+                planes=planes.astype(np.float32), px=px, py=py, offset=np.asarray([0.0, 0.0, 1.5], np.float32))
+
+
+def inverse_field_jax(x: dict) -> dict:
+    """What the JAX example's first step computes (inverse_field.py:107-137)
+    through render_rays_diff_fused's parts on the planes (diff/fast.py:
+    _rays_fwd_impl with ``rand``, then _rays_bwd's replay) in interpret
+    mode: the target at the true materials, the render with the green row
+    perturbed, the pixel MSE and its gradient."""
+    import jax.numpy as jnp
+
+    from spectral_tpu.diff.fast import _residual_forward, _with_materials
+    from spectral_tpu.ops.pallas.grad_kernel import render_grads_pallas
+    from spectral_tpu.ops.pallas.render_kernel import pack_scene_auto as jax_pack_scene_auto
+
+    jscene = _jax_scene(x["scene"])
+    cv, planes = jnp.asarray(x["cam"]), jnp.asarray(x["planes"])
+    px, py = jnp.asarray(x["px"]), jnp.asarray(x["py"])
+
+    def forward(coeffs):
+        s = _with_materials(jscene, dataclasses.replace(jscene.materials, coeffs=coeffs))
+        tri, mat, tab, leaf, cpk, leaf_size = jax_pack_scene_auto(s, cv)
+        out = _residual_forward(cv, 0, tri, mat, tab, px, py, IF_SPP, IF_BOUNCES, 1024, True, planes, leaf, cpk,
+                                leaf_size)
+        return mat, tab, out
+
+    true = jscene.materials.coeffs
+    target = forward(true)[2][0] / IF_SPP
+    c = true.at[IF_GREEN].add(jnp.asarray(x["offset"]))
+    mat, tab, (xyz, hero, nv, pw, mres) = forward(c)
+    img = xyz / IF_SPP
+    loss = jnp.mean((img - target) ** 2)
+    cot = 2.0 * (img - target) / img.size / IF_SPP
+    grads = render_grads_pallas(mat, tab, cot, hero, nv, pw, mres, IF_SPP, IF_BOUNCES, 1024, True,
+                                want_bg_grads=True, want_sellmeier=False)
+    out = dict(target=target, xyz=xyz, loss=loss, d_coeffs=grads[0], n_valid=nv, matres=mres)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+# examples/inverse_dispersion.py's first step, cut to size: PRISM at 32 px
+# (the 32x16 upper crop), 6 bounces, B0 + 0.08; the XLA-style estimate at the
+# example's 16 spp, the first of the first step's estimates (the keys of the
+# JAX example's splits) that is not 0 (most are: few of a crop's paths cross
+# the glass), and the fused gradient factor at spp_g 4 on uniform planes of
+# seed 23 with a cotangent of seed 24
+ID_SIZE, ID_SPP, ID_SPPG, ID_BOUNCES, ID_GLASS, ID_OFFSET = 32, 16, 4, 6, 2, 0.08
+
+
+def inverse_dispersion_inputs() -> dict:
+    from spectral_tpu.models import scenes as jscenes
+    from spectral_tpu.ops.pallas.render_kernel import camera_vector as jax_camera_vector
+    from spectral_tpu.ops.pallas.render_kernel import n_uniforms as jax_n_uniforms
+
+    w, h = ID_SIZE, ID_SIZE // 2
+    px, py = _padded(w, h)
+    planes = np.random.default_rng(23).uniform(size=(ID_SPPG, jax_n_uniforms(ID_BOUNCES), px.shape[0]))
+    cot = np.random.default_rng(24).normal(size=(h, w, 3)).astype(np.float32)
+    jcam = jscenes.scene_camera(jscenes.PRISM, ID_SIZE, ID_SIZE)
+    return dict(scene=jax_arrays(jscenes.build_scene(jscenes.PRISM)), cam=jax_camera_arrays(jcam),
+                cam_vec=np.asarray(jax_camera_vector(jcam)), planes=planes.astype(np.float32), px=px, py=py, cot=cot)
+
+
+def inverse_dispersion_jax(x: dict) -> dict:
+    """The XLA-style estimate of the JAX example's first step
+    (inverse_dispersion.py:77-95: the CRN residual at k1, the
+    reparameterized VJP at k2; key, k1, k2 = split(key, 3) from PRNGKey(7))
+    that is the first not 0, with its index and both keys' draws; and the
+    fused gradient factor (render_rays_diff_fused with reparam_glass,
+    :133-139) on the planes: _rays_fwd_impl's parts with ``rand``, the
+    replay of cot / spp_g and the Sellmeier fold."""
+    import jax
+    import jax.numpy as jnp
+
+    from spectral_tpu.diff.fast import _residual_forward, _sellmeier_grads_from_replay, _with_materials
+    from spectral_tpu.ops.pallas.grad_kernel import render_grads_pallas
+    from spectral_tpu.ops.pallas.render_kernel import pack_scene_auto as jax_pack_scene_auto
+    from spectral_tpu.render.wavefront import render_chunk
+
+    scene, cam = _jax_scene(x["scene"]), _jax_camera(x["cam"])
+    w, h = ID_SIZE, ID_SIZE // 2
+    n = w * h
+
+    def set_b(b_glass):
+        m = scene.materials
+        return dataclasses.replace(scene, materials=dataclasses.replace(
+            m, sellmeier_b=m.sellmeier_b.at[ID_GLASS].set(b_glass)))
+
+    b = scene.materials.sellmeier_b[ID_GLASS] + jnp.asarray([ID_OFFSET, 0.0, 0.0])
+    key = jax.random.PRNGKey(7)
+    for i in range(8):  # the first step's M = 8 estimates
+        key, k1, k2 = jax.random.split(key, 3)
+        ref = render_chunk(scene, cam, k1, 0, 0, w, h, ID_SPP, ID_BOUNCES)
+        cur = render_chunk(set_b(b), cam, k1, 0, 0, w, h, ID_SPP, ID_BOUNCES)
+        resid = (cur - ref) / ID_SPP
+
+        def f(bg, k2=k2):
+            return render_chunk(set_b(bg), cam, k2, 0, 0, w, h, ID_SPP, ID_BOUNCES, reparam_glass=ID_GLASS) / ID_SPP
+
+        _, vjp = jax.vjp(f, b)
+        (g_xla,) = vjp(2.0 * resid / resid.size)
+        if np.any(np.asarray(g_xla) != 0.0):
+            break
+
+    s = _with_materials(scene, set_b(b).materials)
+    cv = jnp.asarray(x["cam_vec"])
+    tri, mat, tab, leaf, cpk, leaf_size = jax_pack_scene_auto(s, cv)
+    xyz, hero, nv, pw, mres = _residual_forward(
+        cv, 0, tri, mat, tab, jnp.asarray(x["px"]), jnp.asarray(x["py"]), ID_SPPG, ID_BOUNCES, 1024, True,
+        jnp.asarray(x["planes"]), leaf, cpk, leaf_size,
+    )
+    cot = jnp.concatenate([jnp.asarray(x["cot"]).reshape(n, 3), jnp.zeros((xyz.shape[0] - n, 3), jnp.float32)])
+    grads = render_grads_pallas(mat, tab, cot / ID_SPPG, hero, nv, pw, mres, ID_SPPG, ID_BOUNCES, 1024, True,
+                                want_bg_grads=True, want_sellmeier=True)
+    g_fused, _ = _sellmeier_grads_from_replay(s.materials, ID_GLASS, hero, grads[3], grads[4])
+    out = dict(estimate=np.int32(i), resid=resid, loss=jnp.mean(resid**2), g_xla=g_xla, xyz=xyz, g_fused=g_fused,
+               matres=mres)
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out.update({f"k1.{k}": v for k, v in xla_draws(k1, n, ID_SPP, ID_BOUNCES).items()})
+    out.update({f"k2.{k}": v for k, v in xla_draws(k2, n, ID_SPP, ID_BOUNCES).items()})
+    return out
+
+
 CASES = {
     name: (globals()[f"{name}_inputs"], globals()[f"{name}_jax"])
     for name in ("replay_tris", "intersect_cornell", "prism_render", "prism_flip", "fused_prism", "field_mega",
                  "field_sorted", "field_replay", "xla_camera", "xla_spectrum", "xla_hits", "xla_scatter",
                  "xla_cornell", "xla_prism", "xla_train", "xla_misc", "lbvh", "warp_geometry", "warp_funcs",
-                 "warp_screen", "warp_shadow", "warp_fuzz", "warp_train", "par_render", "par_train", "par_fused")
+                 "warp_screen", "warp_shadow", "warp_fuzz", "warp_train", "par_render", "par_train", "par_fused",
+                 "rgb2spec", "inverse_field", "inverse_dispersion")
 }
 
 
