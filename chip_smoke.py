@@ -142,10 +142,12 @@ Phases, each fatal on failure:
    device, with its wall time and its own verdict (SPD error under 0.03),
    each taking at least EXAMPLE_SHARE of the SPD error away. Each path runs
    twice; each rank's ms (CUDA events around the second call, the first
-   beside it), the wall ms of its collectives (the device synchronized
-   around each; the wait for the group's slowest rank included) and its
-   peak memory stand beside the one-device numbers of the same frames:
-   processes that share one card, not scaling. A rank that fails, or a world that runs
+   beside it), the count and host ms of its ``mesh.all_reduce`` spans
+   (utils/trace.py; with gloo on a CUDA tensor the host waits for the
+   all-reduce, with NCCL it enqueues it: the device's NCCL time is the
+   benchmark's ``collective_ms``) and its peak memory stand beside the
+   one-device numbers of the same frames: processes that share one card,
+   not scaling. A rank that fails, or a world that runs
    out of WORLD_SECONDS, fails the phase;
 15. the general-colour rgb2spec (ops/rgb2spec.py) on CUDA tensors against
    its CPU results (the table lookup and the LM fit of the stored case's 39
@@ -1828,38 +1830,46 @@ def par_steps(p) -> dict:
 
 
 def par_timed(mesh, fn):
-    """fn()'s value and, on this rank: its ms from CUDA events, the wall ms
-    of its collectives (the device synchronized around each), their count,
-    the peak memory and the launches of each kernel."""
+    """fn()'s value and, on this rank: its ms from CUDA events, the count
+    and host ms of its ``mesh.all_reduce`` spans (recorded around fn()), the
+    peak memory and the launches of each kernel."""
     from spectral_tpu_torch.ops.cuda import build
+    from spectral_tpu_torch.utils import trace
 
     for k in build.KERNELS.values():
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    if mesh is not None:
-        mesh.collective_s, mesh.collectives = 0.0, 0
+    trace.reset()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    value = fn()
-    end.record()
+    with trace.recording():
+        start.record()
+        value = fn()
+        end.record()
     torch.cuda.synchronize()
+    s = trace.summary()
+    reduce = s["spans"].get("mesh.all_reduce", {"count": 0, "total_s": 0.0})
     return value, {
         "ms": start.elapsed_time(end),
-        "collective_ms": 0.0 if mesh is None else 1e3 * mesh.collective_s,
-        "collectives": 0 if mesh is None else mesh.collectives,
+        "all_reduce_host_ms": 1e3 * reduce["total_s"],
+        "all_reduces": reduce["count"],
         "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-        "launches": {k.name: k.launches for k in build.KERNELS.values() if k.launches},
+        "launches": s["launches"],
     }
+
+
+def all_reduce_spans(res, name) -> list:
+    """Each rank's (count, host ms) of path ``name``'s mesh.all_reduce spans."""
+    return [(r[name]["stats"]["all_reduces"], r[name]["stats"]["all_reduce_host_ms"]) for r in res]
 
 
 def par_twice(mesh, fn):
     """fn()'s first value, with the par_timed stats of a second call and
-    the first call's ms and collective ms (which hold the warm-up: lazy
+    the first call's ms and all-reduce host ms (which hold the warm-up: lazy
     CUDA modules, a backend's first communicator)."""
     value, first = par_timed(mesh, fn)
     _, stats = par_timed(mesh, fn)
-    stats.update(first_ms=first["ms"], first_collective_ms=first["collective_ms"])
+    stats.update(first_ms=first["ms"], first_all_reduce_host_ms=first["all_reduce_host_ms"])
     return value, stats
 
 
@@ -1932,7 +1942,6 @@ def rank_main(spec_path: str) -> int:
         out = {"rank": rank, "meshes": {}}
         for shape in spec["meshes"]:
             mesh = mesh_of_shape(*shape, device=dev)
-            mesh.timed = True
             res = par_run(p, mesh)
             for name, r in res.items():
                 log(f"{spec['backend']} rank {rank}, mesh {tuple(shape)}, {name}: {r['stats']}")
@@ -2104,8 +2113,9 @@ def parallel_phase(dev, smi: str, cards: int = 1) -> dict:
                 ok = err == 0.0
             summary[name] = {"rel_err": err, "ranks": [r[name]["stats"] for r in res]}
             log(f"{key} {name}: against the composition {'bit-equal' if err == 0.0 else err}; one device "
-                f"{one[name]['stats']['ms']} ms; ranks {[r[name]['stats']['ms'] for r in res]} ms, collectives "
-                f"{[r[name]['stats']['collective_ms'] for r in res]} ms, peak "
+                f"{one[name]['stats']['ms']} ms; ranks {[r[name]['stats']['ms'] for r in res]} ms, all-reduce "
+                f"spans {all_reduce_spans(res, name)} (count, host ms; the device's NCCL time is the benchmark's "
+                f"collective_ms), peak "
                 f"{[r[name]['stats']['peak_mib'] for r in res]} MiB (one device {one[name]['stats']['peak_mib']})")
             if not ok:
                 raise SystemExit(f"phase 14: {key} {name} differs from its composition ({err})")
@@ -2127,7 +2137,8 @@ def parallel_phase(dev, smi: str, cards: int = 1) -> dict:
             log(f"{key} {name}: loss {res[0][name]['loss']} (composed {loss}), gradient against the true one "
                 f"composed in one process {rel} of each leaf's largest, ratio {ratio} (1, not n_sample = {shape[1]}); "
                 f"one device {one[name]['stats']['ms']} ms; ranks {[r[name]['stats']['ms'] for r in res]} ms, "
-                f"collectives {[r[name]['stats']['collective_ms'] for r in res]} ms, peak "
+                f"all-reduce spans {all_reduce_spans(res, name)} (count, host ms; the device's NCCL time is the "
+                f"benchmark's collective_ms), peak "
                 f"{[r[name]['stats']['peak_mib'] for r in res]} MiB (one device {one[name]['stats']['peak_mib']})")
             if any(v > tol for v in rel.values()) or abs(ratio - 1.0) > tol:
                 raise SystemExit(f"phase 14: {key} {name} gradient is not the true one ({rel}, ratio {ratio})")

@@ -53,6 +53,7 @@ from ..ops.cuda.grad_kernel import render_grads
 from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_auto, render_chunk, render_rays_residuals
 from ..ops.cuda.wavefront_kernel import render_rays_wavefront
 from ..render import wavefront
+from ..utils.trace import span
 from .spectral_reparam import reparam_hero
 
 # the material leaves render_chunk_diff differentiates (the float fields of
@@ -120,10 +121,12 @@ def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=N
     """xyz [N, 3] and the residuals (mat, tab, hero, n_valid, power, matres)
     the backward replays."""
     cam_vec = camera_vector(cam).to(scene.normal.device)
-    tri, mat, tab, leaf = pack_scene_auto(dataclasses.replace(scene, materials=materials), cam_vec)
-    xyz, hero, n_valid, power, matres = _residual_forward(
-        cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand, sched,
-    )
+    with span("train.pack"):
+        tri, mat, tab, leaf = pack_scene_auto(dataclasses.replace(scene, materials=materials), cam_vec)
+    with span("train.forward"):
+        xyz, hero, n_valid, power, matres = _residual_forward(
+            cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand, sched,
+        )
     return xyz, (mat, tab, hero, n_valid, power, matres)
 
 
@@ -190,23 +193,24 @@ class _FusedRays(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        spec = ctx.spec
-        sell_b_in, sell_c_in, mat, tab, hero, n_valid, power, matres = ctx.saved_tensors
-        glass = spec.reparam_glass
-        grads = render_grads(
-            mat, tab, g.to(torch.float32).contiguous(), hero, n_valid, power, matres,
-            spec.spp, spec.bounces, want_bg_grads=True, want_sellmeier=glass is not None,
-        )
-        d_coeffs, d_power, d_bg = grads[:3]
-        d_b = d_c = None
-        if glass is not None:
-            mats = dataclasses.replace(spec.materials, sellmeier_b=sell_b_in, sellmeier_c=sell_c_in)
-            gb, gc = _sellmeier_grads_from_replay(mats, glass, hero, grads[3], grads[4])
-            d_b = torch.zeros_like(sell_b_in)
-            d_c = torch.zeros_like(sell_c_in)
-            d_b[glass] = gb
-            d_c[glass] = gc
-        return d_coeffs, d_power, d_b, d_c, d_bg, None
+        with span("train.replay"):
+            spec = ctx.spec
+            sell_b_in, sell_c_in, mat, tab, hero, n_valid, power, matres = ctx.saved_tensors
+            glass = spec.reparam_glass
+            grads = render_grads(
+                mat, tab, g.to(torch.float32).contiguous(), hero, n_valid, power, matres,
+                spec.spp, spec.bounces, want_bg_grads=True, want_sellmeier=glass is not None,
+            )
+            d_coeffs, d_power, d_bg = grads[:3]
+            d_b = d_c = None
+            if glass is not None:
+                mats = dataclasses.replace(spec.materials, sellmeier_b=sell_b_in, sellmeier_c=sell_c_in)
+                gb, gc = _sellmeier_grads_from_replay(mats, glass, hero, grads[3], grads[4])
+                d_b = torch.zeros_like(sell_b_in)
+                d_c = torch.zeros_like(sell_c_in)
+                d_b[glass] = gb
+                d_c[glass] = gc
+            return d_coeffs, d_power, d_b, d_c, d_bg, None
 
 
 def render_rays_diff_fused(

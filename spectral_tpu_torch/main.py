@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 import torch
 
@@ -24,12 +23,38 @@ from .io.image import save_image, save_render
 from .models.scenes import SCENE_NAMES, build_scene, scene_camera
 from .render.wavefront import xyz_to_image
 from .runtime.render_manager import RenderManager
+from .utils import trace
 from .utils.device import resolve_device
-from .utils.logging import reset_log_context
+from .utils.logging import LogContext, reset_log_context
+
+
+def log_tallies(log: LogContext) -> None:
+    """The run's spans and kernels (utils/trace.py::summary) as run-log
+    entries: each span's count and self seconds, the kernel builds and
+    their seconds, the launches of each kernel and the host's wait for the
+    card's results."""
+    s = trace.summary()
+    spans = s["spans"]
+    for name, d in sorted(spans.items()):
+        log.add_entry(f"span {name} (count, self seconds)", f"{d['count']}, {d['self_s']:.6f}")
+    builds = spans.get("kernel.build", {"count": 0, "total_s": 0.0})
+    log.add_entry("kernel builds", builds["count"])
+    log.add_entry("kernel build time (seconds)", builds["total_s"])
+    for name, n in s["launches"].items():
+        log.add_entry(f"launches {name}", n)
+    log.add_entry("host wait (seconds)", spans.get("render.wait", {}).get("total_s", 0.0))
 
 
 def main(argv: list[str] | None = None) -> int:
     p = parse_args(sys.argv[1:] if argv is None else argv)
+    if not p.do_log:
+        return _run(p)
+    trace.reset()
+    with trace.recording():
+        return _run(p)
+
+
+def _run(p) -> int:
     device = resolve_device(p.device)
     log = reset_log_context(p.title, p.log_subdir)
 
@@ -37,10 +62,10 @@ def main(argv: list[str] | None = None) -> int:
     log.add_entry("scene", SCENE_NAMES.get(p.scene, str(p.scene)))
     log.add_entry("device", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
 
-    t0 = time.perf_counter()
     scene = build_scene(p.scene, device)
     cam = scene_camera(p.scene, p.xres, p.yres, device)
-    log.add_entry("scene build time (seconds)", time.perf_counter() - t0)
+    if p.do_log:
+        log.add_entry("scene build time (seconds)", trace.summary()["spans"]["scene.build"]["total_s"])
     log.add_entry("triangles", scene.num_tris)
 
     rm = RenderManager(scene, cam, p, log)
@@ -77,9 +102,9 @@ def main(argv: list[str] | None = None) -> int:
         with torch.profiler.profile(activities=activities) as prof:
             img = rm.render(on_chunk)
         os.makedirs(p.profile_dir, exist_ok=True)
-        trace = os.path.join(p.profile_dir, f"{p.title}_trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"\nprofiler trace in {trace}", file=sys.stderr)
+        trace_path = os.path.join(p.profile_dir, f"{p.title}_trace.json")
+        prof.export_chrome_trace(trace_path)
+        print(f"\nprofiler trace in {trace_path}", file=sys.stderr)
     else:
         img = rm.render(on_chunk)
     print("", file=sys.stderr)
@@ -90,6 +115,7 @@ def main(argv: list[str] | None = None) -> int:
     if p.show:
         print(f"preview at {preview_path}")
     if p.do_log:
+        log_tallies(log)
         path = log.to_file()
         print(f"log at {path}")
     return 0

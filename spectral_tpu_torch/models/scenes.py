@@ -26,6 +26,7 @@ import torch
 
 from ..ops.rgb2spec import srgb_to_illuminance_spectrum
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from .camera import Camera, make_camera
 from .geometry import TriSoup, finalize
 from .materials import MaterialBuilder, Materials
@@ -285,7 +286,8 @@ def _host_scene(scene_id: int) -> dict:
 
 
 def build_scene(scene_id: int, device: torch.device | str = "cuda") -> Scene:
-    return scene_from_numpy(_host_scene(scene_id), device)
+    with span("scene.build"):
+        return scene_from_numpy(_host_scene(scene_id), device)
 
 
 def expected_sizes(scene_id: int) -> tuple[int, int]:

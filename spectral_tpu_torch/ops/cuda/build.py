@@ -32,6 +32,8 @@ from pathlib import Path
 
 import torch
 
+from ...utils.trace import span
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "spectral_tpu_torch"
 NVCC_FLAGS = (
@@ -103,7 +105,8 @@ class Kernel:
             build_all([self])
             lib = self.library()
             if lib not in _LOADED:
-                _LOADED[lib] = ctypes.CDLL(str(lib))
+                with span("kernel.load"):
+                    _LOADED[lib] = ctypes.CDLL(str(lib))
             fn = getattr(_LOADED[lib], entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -139,7 +142,8 @@ def build_all(kernels) -> None:
     errors = []
     for ks, (proc, tmp) in started:
         try:
-            ks[0]._finish_build(proc, tmp)
+            with span("kernel.build"):
+                ks[0]._finish_build(proc, tmp)
         except RuntimeError as e:
             errors.append(str(e))
         for k in ks[1:]:

@@ -62,6 +62,7 @@ from ...utils.constants import (
     cie_z,
     to,
 )
+from ...utils.trace import span
 from ..bvh import morton_codes
 from ..fp32 import cos, dot3, fma, sin
 from ..intersect import (
@@ -793,21 +794,23 @@ def render_chunk(
         raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
     dev = scene.normal.device
     cam_vec = camera_vector(cam).to(dev)
-    tri, mat, tab, leaf = pack_scene_auto(scene, cam_vec)
+    with span("render.pack"):
+        tri, mat, tab, leaf = pack_scene_auto(scene, cam_vec)
     ys, xs = torch.meshgrid(
         torch.arange(y0, y0 + height, device=dev),
         torch.arange(x0, x0 + width, device=dev),
         indexing="ij",
     )
     px, py = xs.reshape(-1).to(torch.float32), ys.reshape(-1).to(torch.float32)
-    if leaf is not None and leaf.shape[0] > 1 and sched == "sorted":
-        from .wavefront_kernel import render_rays_wavefront
+    with span("render.launch"):
+        if leaf is not None and leaf.shape[0] > 1 and sched == "sorted":
+            from .wavefront_kernel import render_rays_wavefront
 
-        xyz = render_rays_wavefront(
-            cam_vec, seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand
-        )
-    else:
-        xyz = render_rays(
-            cam_vec, seed, tri, mat, tab, px, py, spp, bounces, cam.image_width, rand, leaf_pack=leaf
-        )
+            xyz = render_rays_wavefront(
+                cam_vec, seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand
+            )
+        else:
+            xyz = render_rays(
+                cam_vec, seed, tri, mat, tab, px, py, spp, bounces, cam.image_width, rand, leaf_pack=leaf
+            )
     return xyz.reshape(height, width, 3)

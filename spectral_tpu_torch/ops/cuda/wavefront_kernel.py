@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.trace import span
 from ..bvh import _expand_bits
 from ..intersect import BIG, LEAF_VALID
 from . import build
@@ -274,21 +275,26 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
     res = residual_buffers(spp, bounces, n, dev, out) if save_residuals else None
     matres = res[3] if res is not None else None
     scene = (tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces)
-    sweep = leaf_tables(tri_pack, leaf_pack)
+    with span("sched.tables"):
+        sweep = leaf_tables(tri_pack, leaf_pack)
 
-    state = torch.empty((STATE_ROWS, nrays), dtype=f32, device=dev)
-    camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep)
-    orig = torch.arange(nrays, dtype=torch.int32, device=dev)
-    if bounces > 1:
-        lo, inv_ext = _key_box(leaf_pack)
+    with span("sched.camera"):
+        state = torch.empty((STATE_ROWS, nrays), dtype=f32, device=dev)
+        camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep)
+        orig = torch.arange(nrays, dtype=torch.int32, device=dev)
+        if bounces > 1:
+            lo, inv_ext = _key_box(leaf_pack)
     for b in range(1, bounces):
-        perm = torch.argsort(_sort_keys(state, lo, inv_ext), stable=True)
-        state = state.index_select(1, perm)
-        orig = orig.index_select(0, perm)
-        bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep)
+        with span("sched.sort"):
+            perm = torch.argsort(_sort_keys(state, lo, inv_ext), stable=True)
+            state = state.index_select(1, perm)
+            orig = orig.index_select(0, perm)
+        with span("sched.bounce"):
+            bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep)
 
-    xyz = torch.empty((n, 3), dtype=f32, device=dev)
-    integrate(tables, state, orig, n, spp, xyz, *(res[:3] if res is not None else ()))
+    with span("sched.integrate"):
+        xyz = torch.empty((n, 3), dtype=f32, device=dev)
+        integrate(tables, state, orig, n, spp, xyz, *(res[:3] if res is not None else ()))
     return (xyz, *res) if save_residuals else xyz
 
 

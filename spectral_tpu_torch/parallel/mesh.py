@@ -25,10 +25,11 @@ which is why rows are assembled by an all-reduce (``Mesh.assemble_rows``).
 from __future__ import annotations
 
 import math
-import time
 
 import torch
 import torch.distributed as dist
+
+from ..utils.trace import span
 
 TILE_AXIS = "tile"
 SAMPLE_AXIS = "sample"
@@ -72,12 +73,9 @@ class Mesh:
     coordinates; ``rank`` = ti * ns + si; ``device``: the rank's device;
     ``sample_group`` / ``tile_group``: the process groups of the ranks that
     share ``ti`` / ``si`` (None on the 1 x 1 mesh of a process with no
-    process group, which makes no collective call).
-
-    ``timed``: when set, each collective synchronizes the device before and
-    after and adds its wall time, the wait for the group's slowest rank
-    included, to ``collective_s``; ``collectives`` counts the calls either
-    way.
+    process group, which makes no collective call); ``collectives`` counts
+    the collective calls, each a ``mesh.all_reduce`` span
+    (utils/trace.py).
     """
 
     def __init__(self, nt: int, ns: int, ti: int, si: int, device, sample_group=None, tile_group=None,
@@ -88,8 +86,6 @@ class Mesh:
         self.device = torch.device(device)
         self.sample_group, self.tile_group = sample_group, tile_group
         self.distributed = distributed
-        self.timed = False
-        self.collective_s = 0.0
         self.collectives = 0
 
     @classmethod
@@ -113,15 +109,8 @@ class Mesh:
 
     def _all_reduce(self, x: torch.Tensor, group) -> torch.Tensor:
         self.collectives += 1
-        if not self.timed:
+        with span("mesh.all_reduce"):
             dist.all_reduce(x, group=group)
-            return x
-        sync = torch.cuda.synchronize if x.device.type == "cuda" else (lambda *_: None)
-        sync(x.device)
-        t0 = time.perf_counter()
-        dist.all_reduce(x, group=group)
-        sync(x.device)
-        self.collective_s += time.perf_counter() - t0
         return x
 
     def _group(self, axis: str | None):

@@ -46,6 +46,7 @@ from ..models.materials import tabulate
 from ..ops.cuda.render_kernel import render_chunk
 from ..render.wavefront import chunk_pixels, render_tile_xyz
 from ..utils.prng import fold
+from ..utils.trace import span
 from .mesh import SAMPLE_AXIS, TILE_AXIS, Mesh
 
 _MATERIAL_KEYS = ("coeffs", "emission_power", "fuzz", "sellmeier_b", "sellmeier_c")
@@ -227,8 +228,9 @@ def train_step_fused(
     """One SGD step of inverse rendering through the fused kernels
     (render.py:269): ``fused_loss_and_grads``, then p - lr * g for every
     leaf. Returns (new_params, loss), the same on every rank."""
-    loss, grads = fused_loss_and_grads(params, scene, cam, target_xyz, seed, samples_per_pixel, bounce_limit, mesh,
-                                       sched)
-    with torch.no_grad():
-        new_params = {k: p.detach() - lr * grads[k] for k, p in params.items()}
+    with span("train.step"):
+        loss, grads = fused_loss_and_grads(params, scene, cam, target_xyz, seed, samples_per_pixel, bounce_limit,
+                                           mesh, sched)
+        with span("train.update"), torch.no_grad():
+            new_params = {k: p.detach() - lr * grads[k] for k, p in params.items()}
     return new_params, loss

@@ -31,6 +31,7 @@ from ..render import wavefront
 from ..render.wavefront import xyz_to_image
 from ..utils.logging import LogContext
 from ..utils.prng import fold
+from ..utils.trace import span
 
 
 def chunk_seed(x0: int, y0: int, image_width: int) -> int:
@@ -92,6 +93,10 @@ class RenderManager:
         ``key``: the XLA-style renderer's root key (the JAX CLI's
         PRNGKey(1984)); the kernels seed each chunk from its position.
         """
+        with span("render.frame"):
+            return self._render(on_chunk, checkpoint, key)
+
+    def _render(self, on_chunk, checkpoint, key) -> np.ndarray:
         p = self.params
         t0 = time.perf_counter()
 
@@ -150,7 +155,8 @@ class RenderManager:
         return self.image()
 
     def _consume(self, c: ChunkResult, on_chunk, done: set) -> None:
-        xyz = c.xyz.cpu().numpy()  # waits for this chunk only
+        with span("render.wait"):
+            xyz = c.xyz.cpu().numpy()  # waits for this chunk only
         self._fb_xyz[c.y0 : c.y0 + c.height, c.x0 : c.x0 + c.width] = xyz
         done.add((c.x0, c.y0))
         if on_chunk is not None:
@@ -159,5 +165,8 @@ class RenderManager:
     def image(self) -> np.ndarray:
         """Current framebuffer as uint8 sRGB (save_to_fb + image_channels),
         converted on the render device."""
-        fb = torch.from_numpy(self._fb_xyz).to(self.device)
-        return xyz_to_image(fb, self.params.nsamples).cpu().numpy()
+        with span("render.image"):
+            fb = torch.from_numpy(self._fb_xyz).to(self.device)
+            img = xyz_to_image(fb, self.params.nsamples)
+            with span("render.wait"):
+                return img.cpu().numpy()

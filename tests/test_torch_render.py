@@ -272,7 +272,13 @@ def test_cli_writes_bmp(tmp_path, scene_id):
     )
     assert out.returncode == 0, out.stderr
     bmps = glob.glob(str(tmp_path / "renders" / "*_render.bmp"))
-    assert len(bmps) == 1 and glob.glob(str(tmp_path / "logs" / "*_render_log.txt"))
+    logs = glob.glob(str(tmp_path / "logs" / "*_render_log.txt"))
+    assert len(bmps) == 1 and len(logs) == 1
+    with open(logs[0]) as f:
+        entries = dict(line.rstrip("\n").split(": ", 1) for line in f)
+    # the run's tallies (utils/trace.py): one frame, one scene build, the host's waits
+    assert entries["span render.frame (count, self seconds)"].startswith("1, ")
+    assert float(entries["scene build time (seconds)"]) > 0 and float(entries["host wait (seconds)"]) >= 0
     with open(bmps[0], "rb") as f:
         img = decode_bmp(f.read())
     assert img.shape == (32, 32, 3)
@@ -282,14 +288,16 @@ def test_cli_writes_bmp(tmp_path, scene_id):
 
 
 def test_cli_profile_writes_trace(tmp_path, monkeypatch, capfd):
-    """The profiler's trace file is written. The profiler (Kineto) writes
-    to the process's fd 2 itself, past sys.stderr, so the test captures at
-    the fd level (capfd): under the run's sys-level capture those lines
-    would reach the terminal and split pytest's progress lines."""
+    """The profiler's trace file is written, with the program's spans. The
+    profiler (Kineto) writes to the process's fd 2 itself, past sys.stderr,
+    so the test captures at the fd level (capfd): under the run's sys-level
+    capture those lines would reach the terminal and split pytest's
+    progress lines."""
     monkeypatch.chdir(tmp_path)
     argv = ["-xr", "8", "-ns", "1", "-bl", "2", "--no-show", "--device", "cpu", "--profile", "prof", "-t", "p"]
     assert port_main.main(argv) == 0
-    assert os.path.getsize(tmp_path / "prof" / "p_trace.json") > 0
+    with open(tmp_path / "prof" / "p_trace.json") as f:
+        assert '"spectral.render.frame"' in f.read()  # the program's spans on the profiler's timeline
     assert "profiler trace in" in capfd.readouterr().err
 
 
