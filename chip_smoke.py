@@ -724,6 +724,7 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> 
     cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
     camera, bounce, integrate = wk._PLAIN if plain else wk._CUDA
     grouped = "sweep" in inspect.signature(camera).parameters
+    counts_passes = "warp_passes" in inspect.signature(camera).parameters
     n = px.numel()
     nrays = spp * n
     dev = px.device
@@ -735,8 +736,12 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> 
         boxes = {k: torch.zeros_like(steps) for k in levels}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * bounces + 6)]
         state = torch.empty((wk.STATE_ROWS, nrays), device=dev)
+        # each tracing launch's warp passes and lanes at work, where the port counts them
+        passes = torch.zeros((bounces, 2), dtype=torch.int64, device=dev) if counts_passes else None
+        wp = (lambda b: {"warp_passes": passes[b]}) if counts_passes else (lambda b: {})
         ev[0].record()
-        camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, **boxes, **sweep)
+        camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, **boxes, **sweep,
+               **wp(0))
         ev[1].record()
         b_cam = {k: int(v.to(torch.int64).sum()) for k, v in boxes.items()}
         orig = torch.arange(nrays, dtype=torch.int32, device=dev)
@@ -749,7 +754,7 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> 
             orig = orig.index_select(0, perm)
             ev[k + 1].record()
             bounce(seed, tri, mat, tab, leaf, px, py, spp, bounces, b, w, rand, state, orig, None, steps, **boxes,
-                   **sweep)
+                   **sweep, **wp(b))
             ev[k + 2].record()
             k += 3
         res = (torch.empty((spp, n), device=dev), torch.empty((spp, n), device=dev),
@@ -772,6 +777,11 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> 
             b_bounce={k: int(v.to(torch.int64).sum()) - b_cam[k] for k, v in boxes.items()},
             out=(xyz, *res),
         )
+        if passes is not None:
+            # lanes at work over 32 x passes: camera launch, bounce launches
+            p = passes.tolist()
+            out["lanes_cam"] = p[0][1] / (32 * p[0][0])
+            out["lanes_bounce"] = sum(q[1] for q in p[1:]) / (32 * max(sum(q[0] for q in p[1:]), 1))
         if check and not torch.equal(xyz, xyz_res):
             raise SystemExit("integrate step: the residual form's xyz differs from the forward's")
         key = ("cam_ms", "bounce_ms", "step_ms")
@@ -856,13 +866,15 @@ def sorted_report(name: str, args, leaf, plain: bool) -> dict:
     r["b_flat_bound"], _ = bound_ms(b_base + b_flat, b_bytes)
     r["int_bound"], r["int_by"], r["int_res_bound"] = integrate_bound(n_rays, spp)
     plain_ms = f" (plain {r['p_cam']} / {r['p_bounce']} / {r['p_int']})" if plain else ""
+    lanes = (f"; lane efficiency (lanes at work / 32 x warp passes): camera {r['lanes_cam']:.3f}, bounces "
+             f"{r['lanes_bounce']:.3f}") if "lanes_cam" in r else ""
     log(f"  sorted, {name}: camera {r['cam_ms']} ms, {bounces - 1} bounces {r['bounce_ms']} ms, integrate step "
         f"{r['step_ms']} ms (its launch {r['int_ms']} ms; residual form {r['step_res_ms']} ms){plain_ms}, sort and "
         f"gather {r['glue_ms']} ms; bounds {r['cam_bound']} ({r['cam_by']}; flat sweep {r['cam_flat_bound']}), "
         f"{r['b_bound']} ({r['b_by']}; flat sweep {r['b_flat_bound']}), integrate step {r['int_bound']} "
         f"({r['int_by']}; residual form {r['int_res_bound']}) ms; {r['live']} live ray-steps of bounces >= 1; boxes "
         f"entered: camera {r['b_cam']}, bounces {r['b_bounce']}; slab tests a live ray-step: camera "
-        f"{r['cam_tests']}, bounces {r['b_tests']}")
+        f"{r['cam_tests']}, bounces {r['b_tests']}{lanes}")
     return r
 
 
@@ -1040,7 +1052,8 @@ def time_kernels(root: str) -> int:
         ms.update({"wavefront_camera" + tag: t["cam_ms"], "wavefront_bounce" + tag: t["bounce_ms"],
                    "wavefront_integrate" + tag: t["int_ms"], "integrate_step" + tag: t["step_ms"],
                    "integrate_step_residuals" + tag: t["step_res_ms"], "sort_and_gather" + tag: t["glue_ms"]})
-        boxes["sorted" + tag] = {"bounce_live_steps": t["live"], "camera": t["b_cam"], "bounces": t["b_bounce"]}
+        boxes["sorted" + tag] = {"bounce_live_steps": t["live"], "camera": t["b_cam"], "bounces": t["b_bounce"],
+                                 "lane_efficiency": [t.get("lanes_cam"), t.get("lanes_bounce")]}
     ms.update(end_to_end(dev, field, big_field))
     print(json.dumps({"root": os.path.abspath(root), "ms": ms, "digest": digest, "lane_efficiency": lanes,
                       "boxes": boxes, "ptxas": ptxas, "grads": grads, "replay_shape": shapes,

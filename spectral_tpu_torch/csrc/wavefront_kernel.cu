@@ -1,5 +1,5 @@
-// The sorted per-bounce scheduler's three kernels, one thread per ray
-// (sample-ray r = s * n + p of pixel p, sample s), on a ray state carried
+// The sorted per-bounce scheduler's three kernels, over the rays
+// (sample-ray r = s * n + p of pixel p, sample s) of a ray state carried
 // through device memory between launches, and the integrate step that ends
 // a frame.
 //
@@ -31,8 +31,8 @@
 //
 // State: [17, nrays] f32, rows 0-2 origin, 3-5 direction, 6 hero, 7 alive
 // (1 or 0), 8 n_valid, 9 previous triangle (always -1: the f32 sweep
-// excludes none), 10-16 power. The bounce kernel updates it in place: each
-// thread reads and writes its own column only.
+// excludes none), 10-16 power. The bounce kernel updates it in place: a
+// lane reads and writes only the columns it takes.
 //
 // Bound on an H100: FP32 arithmetic for the tracing kernels, as the leaf
 // megakernel's (per live ray-step ~340 flops of shading and the sweep's
@@ -43,21 +43,44 @@
 // Its design: coalesced state reads in sorted order, the CIE rows paired
 // in shared memory, one 16-byte scattered store a sample-ray into a slot,
 // and the spp sum over the slots, which are still in L2, in a second
-// launch of one thread a pixel (integrate_kernel, sum_slots_kernel). The `steps`, `visits`, `group_visits` and `top_visits` outputs
-// ([spp, n] int32, indexed by orig) count each ray's live ray-steps and the
-// leaves, groups and super-groups its sweeps entered. Design, right and
-// simple first: no persistent threads, no queue of live rays; a dead ray's
-// thread returns at once after writing its residual 0. The sweep's
-// hierarchy (leaf_sweep.cuh) is what the tracing kernels' time goes to:
-// each block stages the super-group table in shared memory beside the
-// materials and curves, and reads triangles as 16-byte rows. Under
-// __launch_bounds__(kBlock) ptxas keeps the two tracing kernels at 72-96
-// registers and spills 96-236 bytes to L1; without the bounds, or with a
-// minimum of one block an SM, they built to 121-140 registers, and with
-// minimums of 6 or 8 blocks to 80 or 64; each measured slower (PERF.md).
+// launch of one thread a pixel (integrate_kernel, sum_slots_kernel). The
+// `steps`, `visits`, `group_visits` and `top_visits` outputs ([spp, n]
+// int32, indexed by orig) count each ray's live ray-steps and the leaves,
+// groups and super-groups its sweeps entered.
+//
+// The tracing kernels (trace_columns). Their time goes to the sweep
+// (leaf_sweep.cuh), whose work a ray is very uneven: on the 200k field a
+// bounce ray enters 2 to ~200 leaves. The first design gave each ray a
+// thread on a grid of one thread a ray: a warp ended with its busiest lane,
+// and its lanes ran their boxes and leaves in passes of their own, so 0.19-
+// 0.20 of the lanes were at work in a pass (PERF.md). Now the grid is
+// persistent, one wave of blocks, and a lane whose ray is done shades it
+// and takes the next sorted column from a counter (one atomic for the
+// warp's lanes, as the dense megakernel's take_pixel). The ray's walk is
+// resumable (LeafWalk) and the warp runs it in passes: a leaf is tested by
+// kLeafLanes lanes together for the lane whose walk waits on it
+// (walk_leaves), box tests by each lane for itself (walk_boxes) or, once
+// every column is taken and lanes stand idle, by eight lanes a batch
+// (walk_boxes_together), which shortens the launch's last rays. Each ray
+// enters the same boxes in the same order as nearest_hit_leaves's, so the
+// state, residuals and counters are the one-thread-a-ray kernels', bit for
+// bit; only which lane works on a ray, and when, changes. A lane runs no
+// loop of its own between two of the warp's shuffles and votes, and the
+// warp meets at __syncwarp() before each: a walk_next with a loop of its
+// own left lanes at other shuffles and votes now and then, so that a warp
+// split, took a column twice or hung. Measured and not kept (PERF.md):
+// runs of 32-128 sorted columns a take (fewer runs a warp, a longer tail),
+// each lane testing its own leaves, 16, 8 or 2 lanes a leaf, box tests by
+// eight lanes a batch in every pass, a minimum of 4 blocks an SM (no
+// faster; it made the camera kernel spill) or 5 (slower), and end passes
+// once 1/8, 3/8 or 1/2 of the lanes wait (1/4 is kept; 1/8 and 3/8 within
+// the runs' spread of it). The tracing kernels build to 122-148
+// registers with no spill (3-4 blocks an SM).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "leaf_sweep.cuh"
 #include "path.cuh"
@@ -68,6 +91,9 @@ using namespace spt;
 
 constexpr int kBlock = 128;
 constexpr int kIntegrateBlock = 256;
+// The tracing kernels' loop (trace_columns): the share of the lanes with a
+// ray that wait for an end pass before it runs.
+constexpr int kShadeNum = 1, kShadeDen = 4;
 constexpr int kRowHero = 6, kRowAlive = 7, kRowNValid = 8, kRowPrev = 9,
               kRowPower = 10;
 
@@ -107,19 +133,6 @@ __device__ __forceinline__ Draws ray_draws(const Scene& sc, int s, int p) {
                       pixel_key(sc.seed, sc.px[p], sc.py[p], sc.image_width));
 }
 
-// Nearest hit over the leaves, then shade: one bounce of a live path.
-// Returns its material residual.
-__device__ __forceinline__ int trace(const Scene& sc, Path& st,
-                                     const float4* s_top, const float* s_mat,
-                                     const Curves& cv, const Draws& u, int b,
-                                     SweepCount& cnt) {
-  const LeafHit h = nearest_hit_leaves(sc.lv, s_top, st.r.ox, st.r.oy,
-                                       st.r.oz, st.r.dx, st.r.dy, st.r.dz, cnt);
-  const Surface sf = h.hit ? leaf_surface(sc.lv, h.row) : Surface{};
-  return shade(st, h.hit, h.front, h.t, sf, s_mat, cv, u(3 + 3 * b),
-               u(4 + 3 * b), u(5 + 3 * b));
-}
-
 // The parts of a tracing kernel's shared memory (stage_scene).
 __device__ __forceinline__ void scene_smem_parts(const Scene& sc, float4* smem,
                                                  float4*& s_top, float*& s_mat,
@@ -157,69 +170,175 @@ __device__ __forceinline__ void count(const Counters& c, size_t o, bool first,
   if (c.top_visits) c.top_visits[o] = first ? n.tops : c.top_visits[o] + n.tops;
 }
 
-template <bool kSaveResiduals>
-__global__ void __launch_bounds__(kBlock) camera_bounce_kernel(
-    const float* __restrict__ cam, Scene sc, float* __restrict__ state,
-    int* __restrict__ matres, Counters cnt) {
+// All 32 lanes call this together. The lanes of `need` take the next
+// columns, one each in lane order, with one atomic for the warp (as the
+// dense megakernel's take_pixel); -1 once every column is taken.
+__device__ __forceinline__ int take_column(int* next_col, int nrays,
+                                           unsigned need, int lane) {
+  const int leader = __ffs(need) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(next_col, __popc(need));
+  __syncwarp();
+  base = __shfl_sync(0xffffffffu, base, leader);
+  const int c = base + __popc(need & ((1u << lane) - 1u));
+  return c < nrays ? c : -1;
+}
+
+// The tracing kernels' loop, on a persistent grid: one bounce (bounce b;
+// the camera ray and bounce 0 with kCamera) of every column of the state.
+// Each lane holds one ray's walk (leaf_sweep.cuh::LeafWalk) and the warp
+// runs it in passes. A walking pass runs the units the walks wait on: the
+// leaves, kLeafLanes lanes a leaf (walk_leaves), then the box tests, each
+// lane its own (walk_boxes) or, once every column is taken and lanes stand
+// idle, the warp's batches four at a time (walk_boxes_together). Lanes
+// whose walk is over wait for an end pass, which runs once they are
+// kShadeNum / kShadeDen of the lanes with a ray or no lane walks: they
+// shade their rays, write their columns and take the next columns, one
+// atomic for the warp. A column whose path has ended (sorted last) is
+// passed over at once: residual 0, no walk. Lanes without a ray stay in
+// the loop, and help, until the warp's last ray is done. warp_passes, when
+// given, gets the warp's passes added to [0] and the lanes at work in them
+// to [1]: a pass's lanes at work are the lanes that shade, test their own
+// boxes, or test a leaf or a box for a lane.
+template <bool kCamera, bool kSaveResiduals>
+__device__ __forceinline__ void trace_columns(
+    const Scene& sc, int b, const float* __restrict__ cam,
+    float* __restrict__ state, const int* __restrict__ orig,
+    int* __restrict__ matres, const Counters& cnt, int* next_col,
+    unsigned long long* warp_passes) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kLeafGroups = 32 / kLeafLanes;
   extern __shared__ float4 smem[];
   float4* s_top;
   float *s_mat, *s_tab;
   scene_smem_parts(sc, smem, s_top, s_mat, s_tab);
   stage_scene(sc, s_top, s_mat, s_tab);
-  const size_t nrays = (size_t)sc.spp * sc.n;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if ((size_t)r >= nrays) return;
-  const int s = r / sc.n, p = r - s * sc.n;
+  const int nrays = sc.spp * sc.n;
+  const int lane = threadIdx.x & 31;
+  bool exhausted = false;  // every column is taken (the same in each lane)
+  int col = -1;            // the lane's column, -1 without a ray
+  LeafWalk w = {};
+  w.unit = kUnitEnd;
+  unsigned fin = kAll;  // the lanes of an end pass (all lanes at first)
+  unsigned done = 0;    // lanes whose walk is over
+  long long passes = 0, at_work = 0;
+  for (;;) {
+    // the warp meets before each pass: every shuffle and vote below is
+    // made by all 32 lanes together
+    __syncwarp();
+    if (fin) {
+      ++passes;
+      at_work += __popc(done);
+      if (w.unit == kUnitEnd && col >= 0) {
+        // shade the finished ray and write its column
+        const int o = kCamera ? col : orig[col];
+        const int s = o / sc.n, p = o - s * sc.n;
+        const Draws u = ray_draws(sc, s, p);
+        Path st;
+        float hero;
+        const Ray r{w.ox, w.oy, w.oz, w.dx, w.dy, w.dz};
+        if constexpr (kCamera) {
+          start_path(st, r);
+          hero = hero_wavelength(u(2));
+        } else {
+          st.r = r;
+#pragma unroll
+          for (int k = 0; k < kW; ++k)
+            st.power[k] = state[(size_t)(kRowPower + k) * nrays + col];
+          st.n_valid = state[(size_t)kRowNValid * nrays + col];
+          st.alive = true;
+          hero = state[(size_t)kRowHero * nrays + col];
+        }
+        Curves cv;
+        hero_curves(hero, s_tab, cv);
+        const Surface sf = w.h.hit ? leaf_surface(sc.lv, w.h.row) : Surface{};
+        const int mres = shade(st, w.h.hit, w.h.front, w.h.t, sf, s_mat, cv,
+                               u(3 + 3 * b), u(4 + 3 * b), u(5 + 3 * b));
+        if constexpr (kSaveResiduals)
+          matres[((size_t)s * sc.bounces + b) * sc.n + p] = mres;
+        count(cnt, o, kCamera, w.cnt);
+        store_state(state, nrays, col, st, hero);
+        col = -1;
+      }
+      __syncwarp();
+      // the lanes without a ray take the next live columns
+      for (unsigned need = exhausted ? 0u : fin; need;) {
+        const int c = take_column(next_col, nrays, need, lane);
+        bool dead = false;
+        if ((need >> lane) & 1u) {
+          col = c;
+          if (c < 0) {
+          } else if constexpr (kCamera) {
+            const int s = c / sc.n, p = c - s * sc.n;
+            const Ray r = camera_ray(load_camera(cam), sc.px[p], sc.py[p],
+                                     ray_draws(sc, s, p), sc.bounces);
+            walk_start(sc.lv, w, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
+          } else if (state[(size_t)kRowAlive * nrays + c] == 0.0f) {
+            // an ended path touches no material this bounce
+            dead = true;
+            if constexpr (kSaveResiduals) {
+              const int o = orig[c];
+              const int s = o / sc.n, p = o - s * sc.n;
+              matres[((size_t)s * sc.bounces + b) * sc.n + p] = 0;
+            }
+          } else {
+            walk_start(sc.lv, w, state[c], state[(size_t)nrays + c],
+                       state[2 * (size_t)nrays + c], state[3 * (size_t)nrays + c],
+                       state[4 * (size_t)nrays + c], state[5 * (size_t)nrays + c]);
+          }
+        }
+        __syncwarp();
+        exhausted = __any_sync(kAll, ((need >> lane) & 1u) && c < 0);
+        need = __ballot_sync(kAll, dead);
+      }
+      if (col < 0) w.unit = kUnitEnd;
+    } else {
+      const unsigned leaf = __ballot_sync(kAll, col >= 0 && w.unit == kUnitLeaf);
+      if (leaf) walk_leaves(sc.lv, w, leaf, lane);
+      const unsigned box = __ballot_sync(kAll, col >= 0 && w.unit == kUnitBoxes);
+      if (exhausted) {
+        if (box) walk_boxes_together(sc.lv, s_top, w, box, lane);
+      } else if ((box >> lane) & 1u) {
+        walk_boxes(sc.lv, s_top, w);
+      }
+      const int n_leaf = __popc(leaf), n_box = __popc(box);
+      passes += (n_leaf + kLeafGroups - 1) / kLeafGroups +
+                (exhausted ? (n_box + 3) / 4 : box != 0);
+      at_work += kLeafLanes * n_leaf + (exhausted ? kFan * n_box : n_box);
+    }
+    __syncwarp();
+    const unsigned busy = __ballot_sync(kAll, col >= 0);
+    done = __ballot_sync(kAll, col >= 0 && w.unit == kUnitEnd);
+    if (!busy) {
+      if (warp_passes && lane == 0) {
+        atomicAdd(warp_passes, (unsigned long long)passes);
+        atomicAdd(warp_passes + 1, (unsigned long long)at_work);
+      }
+      return;
+    }
+    const int n_busy = __popc(busy), n_done = __popc(done);
+    fin = n_done == n_busy || n_done * kShadeDen >= n_busy * kShadeNum
+              ? done | (exhausted ? 0u : ~busy)
+              : 0u;
+  }
+}
 
-  const Draws u = ray_draws(sc, s, p);
-  Path st;
-  start_path(st, camera_ray(load_camera(cam), sc.px[p], sc.py[p], u, sc.bounces));
-  const float hero = hero_wavelength(u(2));
-  Curves cv;
-  hero_curves(hero, s_tab, cv);
-  SweepCount n;
-  const int mres = trace(sc, st, s_top, s_mat, cv, u, 0, n);
-  if constexpr (kSaveResiduals) matres[(size_t)s * sc.bounces * sc.n + p] = mres;
-  count(cnt, r, true, n);
-  store_state(state, nrays, r, st, hero);
+template <bool kSaveResiduals>
+__global__ void __launch_bounds__(kBlock) camera_bounce_kernel(
+    const float* __restrict__ cam, Scene sc, float* __restrict__ state,
+    int* __restrict__ matres, Counters cnt, int* next_col,
+    unsigned long long* warp_passes) {
+  trace_columns<true, kSaveResiduals>(sc, 0, cam, state, nullptr, matres, cnt,
+                                      next_col, warp_passes);
 }
 
 template <bool kSaveResiduals>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(
     Scene sc, int b, float* __restrict__ state, const int* __restrict__ orig,
-    int* __restrict__ matres, Counters cnt) {
-  extern __shared__ float4 smem[];
-  float4* s_top;
-  float *s_mat, *s_tab;
-  scene_smem_parts(sc, smem, s_top, s_mat, s_tab);
-  stage_scene(sc, s_top, s_mat, s_tab);
-  const size_t nrays = (size_t)sc.spp * sc.n;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if ((size_t)i >= nrays) return;
-  const int o = orig[i];
-  const int s = o / sc.n, p = o - s * sc.n;
-  const size_t mi = ((size_t)s * sc.bounces + b) * sc.n + p;
-  if (state[kRowAlive * nrays + i] == 0.0f) {
-    // an ended path touches no material this bounce
-    if constexpr (kSaveResiduals) matres[mi] = 0;
-    return;
-  }
-
-  Path st;
-  st.r = Ray{state[0 * nrays + i], state[1 * nrays + i], state[2 * nrays + i],
-             state[3 * nrays + i], state[4 * nrays + i], state[5 * nrays + i]};
-#pragma unroll
-  for (int w = 0; w < kW; ++w) st.power[w] = state[(kRowPower + w) * nrays + i];
-  st.n_valid = state[kRowNValid * nrays + i];
-  st.alive = true;
-  const float hero = state[kRowHero * nrays + i];
-  Curves cv;
-  hero_curves(hero, s_tab, cv);
-  SweepCount n;
-  const int mres = trace(sc, st, s_top, s_mat, cv, ray_draws(sc, s, p), b, n);
-  if constexpr (kSaveResiduals) matres[mi] = mres;
-  count(cnt, o, false, n);
-  store_state(state, nrays, i, st, hero);
+    int* __restrict__ matres, Counters cnt, int* next_col,
+    unsigned long long* warp_passes) {
+  trace_columns<false, kSaveResiduals>(sc, b, nullptr, state, orig, matres,
+                                       cnt, next_col, warp_passes);
 }
 
 // The integrate step, in two launches. integrate_kernel: one thread a
@@ -304,8 +423,6 @@ __global__ void __launch_bounds__(kIntegrateBlock)
   xyz[3 * (size_t)p + 2] = az;
 }
 
-int grid_of(size_t nrays) { return (int)((nrays + kBlock - 1) / kBlock); }
-
 // Shared memory of a tracing kernel's block (stage_scene); above the
 // default 48 KB a kernel must be allowed it first.
 template <typename Kernel>
@@ -333,14 +450,23 @@ Scene make_scene(const float* rows, const int* ids, const float* leaf,
                rand, seed};
 }
 
+// One wave of blocks, as many as the card holds at once, and no more than
+// the columns fill.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, const Scene& sc, void* stream, Args... args) {
   const size_t nrays = (size_t)sc.spp * sc.n;
   if (nrays == 0) return 0;
   size_t smem;
-  const cudaError_t e = scene_smem(kernel, sc, smem);
+  cudaError_t e = scene_smem(kernel, sc, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid_of(nrays), kBlock, smem, (cudaStream_t)stream>>>(args...);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (int)std::min<size_t>((nrays + kBlock - 1) / kBlock,
+                                         (size_t)std::max(sms * per_sm, 1));
+  kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -355,8 +481,10 @@ int launch(Kernel kernel, const Scene& sc, void* stream, Args... args) {
 // px/py [n] f32, rand [spp, 5 + 3 * bounces, n] f32 or null (hash draws of
 // `seed`). state [17, spp * n] f32; matres [spp, bounces, n] int32 or null
 // (no residuals); steps, visits, group_visits, top_visits [spp, n] int32 or
-// null. Each launches on `stream` and returns its CUDA error (0 =
-// launched).
+// null. next_col: one int32, 0 before the launch (the columns taken);
+// warp_passes: two uint64, to which the launch adds its warps' passes and
+// their lanes at work (trace_columns), or null. Each launches on `stream`
+// and returns its CUDA error (0 = launched).
 #define SPT_SCENE_PARAMS                                                      \
   const float *rows, const int *ids, const float *leaf, const float *group,   \
       const float *top, int n_leaves, int leaf_size, int n_groups, int n_tops, \
@@ -371,12 +499,16 @@ extern "C" int wavefront_camera_launch(const float* cam, uint32_t seed,
                                        SPT_SCENE_PARAMS, float* state,
                                        int* matres, int* steps, int* visits,
                                        int* group_visits, int* top_visits,
+                                       int* next_col,
+                                       unsigned long long* warp_passes,
                                        void* stream) {
   const Scene sc = make_scene(SPT_SCENE_ARGS, seed);
   const Counters cnt{steps, visits, group_visits, top_visits};
   if (matres)
-    return launch(camera_bounce_kernel<true>, sc, stream, cam, sc, state, matres, cnt);
-  return launch(camera_bounce_kernel<false>, sc, stream, cam, sc, state, matres, cnt);
+    return launch(camera_bounce_kernel<true>, sc, stream, cam, sc, state,
+                  matres, cnt, next_col, warp_passes);
+  return launch(camera_bounce_kernel<false>, sc, stream, cam, sc, state,
+                matres, cnt, next_col, warp_passes);
 }
 
 // Bounce b >= 1 of the state in sorted order; orig [spp * n] int32 is each
@@ -385,12 +517,16 @@ extern "C" int wavefront_bounce_launch(uint32_t seed, SPT_SCENE_PARAMS, int b,
                                        float* state, const int* orig,
                                        int* matres, int* steps, int* visits,
                                        int* group_visits, int* top_visits,
+                                       int* next_col,
+                                       unsigned long long* warp_passes,
                                        void* stream) {
   const Scene sc = make_scene(SPT_SCENE_ARGS, seed);
   const Counters cnt{steps, visits, group_visits, top_visits};
   if (matres)
-    return launch(bounce_kernel<true>, sc, stream, sc, b, state, orig, matres, cnt);
-  return launch(bounce_kernel<false>, sc, stream, sc, b, state, orig, matres, cnt);
+    return launch(bounce_kernel<true>, sc, stream, sc, b, state, orig, matres,
+                  cnt, next_col, warp_passes);
+  return launch(bounce_kernel<false>, sc, stream, sc, b, state, orig, matres,
+                cnt, next_col, warp_passes);
 }
 
 // XYZ [n, 3] f32 of each pixel, summed over its spp samples in ascending

@@ -178,11 +178,11 @@ GRAD = Kernel(
 )
 WAVEFRONT_CAMERA = Kernel(
     "wavefront_camera", "wavefront_kernel.cu", "wavefront_camera_launch",
-    [P, ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
+    [P, ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P, P],
 )
 WAVEFRONT_BOUNCE = Kernel(
     "wavefront_bounce", "wavefront_kernel.cu", "wavefront_bounce_launch",
-    [ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, I, P, P, P, P, P, P, P, P],
+    [ctypes.c_uint32, *LEAF_SCENE, P, I, P, P, P, I, I, I, I, P, I, P, P, P, P, P, P, P, P, P, P],
 )
 WAVEFRONT_INTEGRATE = Kernel(
     "wavefront_integrate", "wavefront_kernel.cu", "wavefront_integrate_launch",

@@ -221,25 +221,33 @@ def integrate_reference(tables, state, orig, n, spp, pixel_xyz, hero=None, n_val
 
 def _launch_camera(cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
                    image_width, rand, state, matres=None, steps=None, visits=None, group_visits=None,
-                   super_visits=None, sweep=None):
+                   super_visits=None, sweep=None, next_col=None, warp_passes=None):
+    """The camera kernel; ``next_col``: its column counter, one int32 that is
+    0 (made here when not given); ``warp_passes``: two int64 that the launch
+    adds its warp passes and lanes at work to, or None."""
     lt = _leaves(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
+    if next_col is None:
+        next_col = torch.zeros(1, dtype=torch.int32, device=px.device)
     build.WAVEFRONT_CAMERA.launch(
         px.device, cam_vec.data_ptr(), seed & _M32, *leaf_launch_args(lt),
         mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
         image_width, spp, bounces,
-        *(_ptr(x) for x in (rand, state, matres, steps, visits, group_visits, super_visits)),
+        *(_ptr(x) for x in (rand, state, matres, steps, visits, group_visits, super_visits, next_col, warp_passes)),
     )
 
 
 def _launch_bounce(seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces, b,
                    image_width, rand, state, orig, matres=None, steps=None, visits=None, group_visits=None,
-                   super_visits=None, sweep=None):
+                   super_visits=None, sweep=None, next_col=None, warp_passes=None):
+    """The bounce kernel; ``next_col`` and ``warp_passes`` as _launch_camera's."""
     lt = _leaves(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
+    if next_col is None:
+        next_col = torch.zeros(1, dtype=torch.int32, device=px.device)
     build.WAVEFRONT_BOUNCE.launch(
         px.device, seed & _M32, *leaf_launch_args(lt),
         mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
         image_width, spp, bounces, _ptr(rand), b,
-        *(_ptr(x) for x in (state, orig, matres, steps, visits, group_visits, super_visits)),
+        *(_ptr(x) for x in (state, orig, matres, steps, visits, group_visits, super_visits, next_col, warp_passes)),
     )
 
 
@@ -256,7 +264,7 @@ _CUDA = (_launch_camera, _launch_bounce, _launch_integrate)
 
 
 def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-               image_width, rand, save_residuals, counters, out):
+               image_width, rand, save_residuals, counters, out, warp_passes=None):
     _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, None, leaf_pack)
     n = px.shape[0]
     dev = px.device
@@ -265,6 +273,13 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
         if x is not None and (x.shape != (spp, n) or x.dtype != torch.int32 or x.device != dev
                               or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 [spp, N] tensor on {dev}")
+    if warp_passes is not None:
+        if kernels is not _CUDA:
+            raise ValueError("warp_passes counts the CUDA kernels' warp passes: it needs CUDA tensors")
+        if (warp_passes.shape != (bounces, 2) or warp_passes.dtype != torch.int64 or warp_passes.device != dev
+                or not warp_passes.is_contiguous()):
+            raise ValueError(f"warp_passes must be a contiguous int64 [bounces, 2] tensor on {dev}")
+        warp_passes.zero_()
     cam_vec, tri_pack, mat_pack, tables, leaf_pack, px, py = (
         x.to(f32).contiguous() for x in (cam_vec, tri_pack, mat_pack, tables, leaf_pack, px, py)
     )
@@ -279,8 +294,15 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
         sweep = leaf_tables(tri_pack, leaf_pack)
 
     with span("sched.camera"):
+        if kernels is _CUDA:
+            # each launch's column counter, and its warp passes where wanted
+            cols = torch.zeros(bounces, dtype=torch.int32, device=dev)
+            launch = [{"next_col": cols[b:b + 1], "warp_passes": None if warp_passes is None else warp_passes[b]}
+                      for b in range(bounces)]
+        else:
+            launch = [{}] * bounces
         state = torch.empty((STATE_ROWS, nrays), dtype=f32, device=dev)
-        camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep)
+        camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep, **launch[0])
         orig = torch.arange(nrays, dtype=torch.int32, device=dev)
         if bounces > 1:
             lo, inv_ext = _key_box(leaf_pack)
@@ -290,7 +312,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
             state = state.index_select(1, perm)
             orig = orig.index_select(0, perm)
         with span("sched.bounce"):
-            bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep)
+            bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep, **launch[b])
 
     with span("sched.integrate"):
         xyz = torch.empty((n, 3), dtype=f32, device=dev)
@@ -301,7 +323,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
 def render_rays_wavefront(
     cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
     image_width, rand=None, save_residuals=False, steps=None, visits=None, out=None,
-    group_visits=None, super_visits=None,
+    group_visits=None, super_visits=None, warp_passes=None,
 ):
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] through
     the sorted per-bounce scheduler, over the leaf pack (tri_pack [NL * K,
@@ -313,7 +335,12 @@ def render_rays_wavefront(
     preallocated residual buffers (every element is written). ``steps``,
     ``visits``, ``group_visits``, ``super_visits``: optional int32 [spp, N]
     outputs, each sample-ray's live ray-steps and entered leaves, groups and
-    super-groups. The leaf tables (render_kernel.py::leaf_tables) are built
+    super-groups. ``warp_passes``: optional int64 [bounces, 2] output of the
+    tracing launches (row 0 the camera launch, b bounce b), CUDA tensors
+    only: each launch's warp passes and the lanes at work in them
+    (csrc/wavefront_kernel.cu::trace_columns); [:, 1] / (32 x [:, 0]) is the
+    share of lanes at work, the lane efficiency. The
+    leaf tables (render_kernel.py::leaf_tables) are built
     once and read by every launch. CUDA tensors launch the
     kernels (one camera launch, bounces - 1 bounce launches, one integrate
     launch), CPU tensors run their plain versions."""
@@ -322,7 +349,7 @@ def render_rays_wavefront(
         raise ValueError(f"unsupported device {px.device}")
     return _wavefront(
         kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-        image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out,
+        image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out, warp_passes,
     )
 
 

@@ -38,6 +38,7 @@ from spectral_tpu_torch.ops.cuda.grad_kernel import launch_shape, render_grads, 
 from spectral_tpu_torch.ops.cuda import wavefront_kernel
 from spectral_tpu_torch.ops.cuda.intersect_kernel import MAX_TRIS, intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
+    leaf_tables,
     n_uniforms,
     order_leaves_near_to_far,
     pack_scene,
@@ -645,6 +646,122 @@ def test_leaf_kernels_on_morton_pack_equal_plain(cuda_device):
     assert torch.equal(xyz, got[0])
     for k in range(3):
         assert torch.equal(mega[k], counts[k].sum(0)), k
+
+
+def _bounce_case(dev, case):
+    """A sorted state for bounce 1 of a 13x7-pixel, 3 spp frame of the
+    field (273 columns: no multiple of a warp or of a run of columns): the
+    camera bounce's, with every path ended (``dead``), all but one ended
+    (``one_live``), or rays from a corner of the field toward random points
+    across it (``corner``), whose walks enter very different numbers of
+    leaves. Returns (the bounce's arguments before ``b``, the state, orig)."""
+    args, leaf = _field_case(dev, injected=False, w=13, h=7, spp=3, bounces=3)
+    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    nrays = spp * px.numel()
+    state = torch.empty((STATE_ROWS, nrays), device=dev)
+    wavefront_kernel.camera_bounce_reference(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state)
+    if case == "corner":
+        lo, inv_ext = wavefront_kernel._key_box(leaf)
+        ext = 1.0 / inv_ext
+        g = torch.Generator(device="cpu").manual_seed(5)
+        origin = lo + ext * (0.01 + 0.02 * torch.rand((nrays, 3), generator=g)).to(dev)
+        target = lo + ext * torch.rand((nrays, 3), generator=g).to(dev)
+        d = target - origin
+        state[0:3] = origin.T
+        state[3:6] = (d / d.norm(dim=1, keepdim=True)).T
+        state[7] = 1.0
+    elif case == "dead":
+        state[7] = 0.0
+    elif case == "one_live":
+        state[7] = 0.0
+        state[7, nrays // 2] = 1.0
+    lo, inv_ext = wavefront_kernel._key_box(leaf)
+    perm = torch.argsort(wavefront_kernel._sort_keys(state, lo, inv_ext), stable=True)
+    orig = torch.arange(nrays, dtype=torch.int32, device=dev)[perm].contiguous()
+    return (seed, tri, mat, tab, leaf, px, py, spp, bounces), state[:, perm].contiguous(), orig
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("ragged", "dead", "one_live", "corner"))
+def test_persistent_bounce_kernel_equals_plain(cuda_device, case):
+    """The persistent bounce kernel against its plain version on one launch:
+    the state, the material residuals (into garbage) and the four counters
+    (live ray-steps, leaves, groups, super-groups entered) bit-equal."""
+    scene, state, orig = _bounce_case(cuda_device, case)
+    spp, bounces, n = scene[7], scene[8], scene[5].numel()
+    outs = []
+    for bounce in (wavefront_kernel._launch_bounce, wavefront_kernel.bounce_reference):
+        st = state.clone()
+        matres = _garbage(spp, bounces, n, cuda_device)[3]
+        counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+        bounce(*scene, 1, 13, None, st, orig, matres, *counts)
+        outs.append((st, matres, *counts))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    live = int((state[7] != 0).sum())
+    assert int(outs[0][2].sum()) == live
+    if case == "corner":
+        visits = outs[0][3][outs[0][2] > 0]
+        assert int(visits.max()) - int(visits.min()) >= 8
+    if case != "dead":
+        assert int(outs[0][5].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_warp_passes_cover_the_live_ray_steps(cuda_device):
+    """Launch by launch, the tracing kernels' warp passes (warp_passes) hold
+    every live ray-step and every unit of its walk (a batch of box tests or
+    a leaf): a pass is at most 32 lanes at work, each lane at work on one
+    step's end or on one unit, and a unit takes at least one lane, so
+    live ray-steps + units <= lanes at work <= 32 x passes."""
+    args, leaf = _field_case(cuda_device, injected=False)
+    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    n, nrays = px.numel(), spp * px.numel()
+    scene = (tri, mat, tab, leaf, px, py, spp, bounces)
+    sweep = leaf_tables(tri, leaf)
+    batches = -(-sweep.supers.shape[0] // 8)
+    state = torch.empty((STATE_ROWS, nrays), device=cuda_device)
+    orig = torch.arange(nrays, dtype=torch.int32, device=cuda_device)
+    lo, inv_ext = wavefront_kernel._key_box(leaf)
+    for b in range(bounces):
+        counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+        passes = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        if b == 0:
+            wavefront_kernel._launch_camera(cam, seed, *scene, w, rand, state, None, *counts, sweep=sweep,
+                                            warp_passes=passes)
+        else:
+            perm = torch.argsort(wavefront_kernel._sort_keys(state, lo, inv_ext), stable=True)
+            state, orig = state.index_select(1, perm), orig.index_select(0, perm)
+            wavefront_kernel._launch_bounce(seed, *scene, b, w, rand, state, orig, None, *counts, sweep=sweep,
+                                            warp_passes=passes)
+        steps, leaves, groups, supers = (int(c.to(torch.int64).sum()) for c in counts)
+        units = steps * batches + supers + groups + leaves
+        n_passes, at_work = passes.tolist()
+        assert steps > 0
+        assert steps + units <= at_work <= 32 * n_passes, b
+
+
+@pytest.mark.cuda
+def test_warp_passes_output_changes_nothing_else(cuda_device):
+    """A frame with the warp_passes output and one without give the same
+    image, residuals and counters."""
+    args, leaf = _field_case(cuda_device, injected=True)
+    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
+    n = px.numel()
+    outs = []
+    passes = torch.full((bounces, 2), 7, dtype=torch.int64, device=cuda_device)
+    for out in (passes, None):
+        counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+        got = render_rays_wavefront(*wf_args, save_residuals=True, steps=counts[0], visits=counts[1],
+                                    group_visits=counts[2], super_visits=counts[3], warp_passes=out)
+        outs.append((*got, *counts))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert (passes > 0).all() and (passes[:, 1] <= 32 * passes[:, 0]).all()
+    assert torch.equal(render_rays_wavefront(*wf_args), outs[1][0])
 
 
 @pytest.mark.cuda
