@@ -50,7 +50,7 @@ import torch
 from ..models.camera import camera_vector
 from ..models.materials import tabulate
 from ..ops.cuda.grad_kernel import render_grads
-from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_auto, render_chunk, render_rays_residuals
+from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_frame, render_chunk, render_rays_residuals
 from ..ops.cuda.wavefront_kernel import render_rays_wavefront
 from ..render import wavefront
 from ..utils.trace import span
@@ -99,21 +99,21 @@ def render_chunk_diff(materials, scene, cam, key_seed: int, x0: int, y0: int, wi
     return _ChunkDiff.apply(spec, *(getattr(materials, k) for k in DIFF_LEAVES))
 
 
-def _residual_forward(cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, image_width, rand,
-                      sched="sorted"):
-    """(xyz, hero, n_valid, power, matres), routed as the forward render:
-    the sorted scheduler for a multi-leaf pack under ``sched="sorted"``,
-    else the residual megakernel (dense, or the leaf form with a leaf
-    pack)."""
+def _residual_forward(cam_vec, key_seed, pack, px, py, spp, bounces, image_width, rand, sched="sorted"):
+    """(xyz, hero, n_valid, power, matres) of the ScenePack ``pack``, routed
+    as the forward render: the sorted scheduler for a multi-leaf pack under
+    ``sched="sorted"``, else the residual megakernel (dense, or the leaf
+    form with a leaf pack)."""
     if sched not in SCHEDULERS:
         raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
+    tri, mat, tab, leaf, sweep, key_box = pack
     if leaf is not None and leaf.shape[0] > 1 and sched == "sorted":
         return render_rays_wavefront(
             cam_vec, int(key_seed), tri, mat, tab, leaf, px, py, spp, bounces, image_width, rand,
-            save_residuals=True,
+            save_residuals=True, sweep=sweep, key_box=key_box,
         )
     return render_rays_residuals(
-        cam_vec, int(key_seed), tri, mat, tab, px, py, spp, bounces, image_width, rand, leaf_pack=leaf
+        cam_vec, int(key_seed), tri, mat, tab, px, py, spp, bounces, image_width, rand, leaf_pack=leaf, sweep=sweep
     )
 
 
@@ -122,12 +122,12 @@ def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=N
     the backward replays."""
     cam_vec = camera_vector(cam).to(scene.normal.device)
     with span("train.pack"):
-        tri, mat, tab, leaf = pack_scene_auto(dataclasses.replace(scene, materials=materials), cam_vec)
+        pack = pack_scene_frame(dataclasses.replace(scene, materials=materials), cam_vec)
     with span("train.forward"):
         xyz, hero, n_valid, power, matres = _residual_forward(
-            cam_vec, key_seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand, sched,
+            cam_vec, key_seed, pack, px, py, spp, bounces, cam.image_width, rand, sched,
         )
-    return xyz, (mat, tab, hero, n_valid, power, matres)
+    return xyz, (pack.mat, pack.tab, hero, n_valid, power, matres)
 
 
 def _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand):

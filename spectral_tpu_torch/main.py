@@ -31,8 +31,8 @@ from .utils.logging import LogContext, reset_log_context
 def log_tallies(log: LogContext) -> None:
     """The run's spans and kernels (utils/trace.py::summary) as run-log
     entries: each span's count and self seconds, the kernel builds and
-    their seconds, the launches of each kernel and the host's wait for the
-    card's results."""
+    their seconds, the launches of each kernel, the leaf packs built and
+    served again, and the host's wait for the card's results."""
     s = trace.summary()
     spans = s["spans"]
     for name, d in sorted(spans.items()):
@@ -42,6 +42,7 @@ def log_tallies(log: LogContext) -> None:
     log.add_entry("kernel build time (seconds)", builds["total_s"])
     for name, n in s["launches"].items():
         log.add_entry(f"launches {name}", n)
+    log.add_entry("leaf packs (builds, reuses)", f"{s['leaf_packs']['builds']}, {s['leaf_packs']['reuses']}")
     log.add_entry("host wait (seconds)", spans.get("render.wait", {}).get("total_s", 0.0))
 
 

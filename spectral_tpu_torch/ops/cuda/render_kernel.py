@@ -13,7 +13,9 @@ dense sweep; larger ones pass a leaf pack (``pack_scene_leaves``) and take
 the Morton-leaf sweep under its groups and super-groups of leaves, in this
 megakernel (``sched="mega"``) or in the sorted per-bounce scheduler of
 ops/cuda/wavefront_kernel.py; ``leaf_tables`` derives what the kernels
-read besides the pack once per render call.
+read besides the pack. ``pack_scene_frame`` builds the leaf pack and its
+tables once per geometry (``LEAF_PACKS``) and each call orders them from
+the camera.
 
 The dense CUDA forms (forward and residual) can also report how many
 sweeps each warp ran (``warp_steps``): live ray-steps / (32 x warp sweeps)
@@ -44,9 +46,11 @@ uint32 arithmetic, which the CUDA source writes identically.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ...models.camera import camera_vector
 from ...models.materials import DIELECTRIC, EMISSIVE, METALLIC
@@ -111,6 +115,8 @@ LEAF_MARGIN = 2.0**-16
 # 8-128 for the sorted scheduler on the 200k-triangle field and within 7%
 # of the fastest on the 10k one.
 LEAF_SIZE = 16
+# leaves a super-group of the sweep's hierarchy
+SUPER_LEAVES = GROUP_SIZE * SUPER_SIZE
 
 _SPAN = LAMBDA_MAX - LAMBDA_MIN
 _TWO_PI = 2.0 * 3.14159265358979
@@ -132,8 +138,15 @@ def pack_scene(scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         ],
         dim=1,
     ).to(torch.float32)
+    dev = scene.normal.device
+    tab = torch.stack(
+        [to(cie_x, dev), to(cie_y, dev), to(cie_z, dev), to(cie_d65_normalized, dev), scene.background_spd.to(torch.float32)]
+    )
+    return tri.contiguous(), pack_materials(scene.materials), tab.contiguous()
 
-    m = scene.materials
+
+def pack_materials(m) -> torch.Tensor:
+    """The material pack [M, 16] float32 of ``Materials`` ``m``."""
     t = m.mat_type
     is_metal = (t == METALLIC).to(torch.float32)
     is_diel = (t == DIELECTRIC).to(torch.float32)
@@ -154,12 +167,7 @@ def pack_scene(scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         ],
         dim=1,
     ).to(torch.float32)
-
-    dev = scene.normal.device
-    tab = torch.stack(
-        [to(cie_x, dev), to(cie_y, dev), to(cie_z, dev), to(cie_d65_normalized, dev), scene.background_spd.to(torch.float32)]
-    )
-    return tri.contiguous(), mat.contiguous(), tab.contiguous()
+    return mat.contiguous()
 
 
 def pack_scene_leaves(scene, leaf_size: int = LEAF_SIZE):
@@ -210,33 +218,44 @@ def order_leaves_near_to_far(tri_pack, leaf_pack, cam_pos):
     cull poorly. Either way the first boxes a camera ray enters hold near
     hits, and the ``enter < best_t`` test skips more of the rest; the
     nearest hit does not depend on the order."""
-    unit = GROUP_SIZE * SUPER_SIZE
+    tri_pack, leaf_pack = _pad_super_groups(tri_pack, leaf_pack)
+    units = box_unions(leaf_pack, SUPER_LEAVES)
+    order = _super_group_order(0.5 * (units[:, 0:3] + units[:, 3:6]), cam_pos)
+    return _take_blocks(tri_pack, order), _take_blocks(leaf_pack, order)
+
+
+def _pad_super_groups(tri_pack, leaf_pack):
+    """The pack padded with invalid leaves (inverted boxes, zero rows) to a
+    whole number of super-groups."""
     n_leaves, width = leaf_pack.shape[0], tri_pack.shape[1]
     k_size = tri_pack.shape[0] // n_leaves
-    pad = -n_leaves % unit
+    pad = -n_leaves % SUPER_LEAVES
     if pad:
         inverted = torch.tensor([BIG] * 3 + [-BIG] * 3 + [0.0, 0.0], dtype=leaf_pack.dtype, device=leaf_pack.device)
         leaf_pack = torch.cat([leaf_pack, inverted.expand(pad, -1)])
         tri_pack = torch.cat([tri_pack, tri_pack.new_zeros((pad * k_size, width))])
-    units = box_unions(leaf_pack, unit)
-    cent = 0.5 * (units[:, 0:3] + units[:, 3:6])
-    order = torch.argsort(torch.sum((cent - cam_pos[None, :]) ** 2, dim=1), stable=True)
-    order = (order[:, None] * unit + torch.arange(unit, device=order.device)).reshape(-1)
-    rows = tri_pack.reshape(-1, k_size, width)[order].reshape(-1, width)
-    return rows.contiguous(), leaf_pack[order].contiguous()
+    return tri_pack, leaf_pack
+
+
+def _super_group_order(cent, cam_pos):
+    """The super-groups' indices sorted stably by the squared distance from
+    ``cam_pos`` to their centres ``cent`` [NS, 3]."""
+    return torch.argsort(torch.sum((cent - cam_pos[None, :]) ** 2, dim=1), stable=True)
+
+
+def _take_blocks(x, order):
+    """The rows of ``x`` [R, C] as len(order) equal blocks, the blocks
+    taken in ``order`` (a new contiguous tensor)."""
+    return x.reshape(order.shape[0], -1, x.shape[1]).index_select(0, order).reshape(-1, x.shape[1])
 
 
 def pack_scene_auto(scene, cam_vec=None, leaf_size: int = LEAF_SIZE):
     """(tri_pack, mat_pack, tables, leaf_pack): the dense pack and None at
     or below DENSE_CUTOFF triangles, the leaf pack above it, its leaves
     near-to-far from the camera when ``cam_vec`` is given
-    (render_kernel.py:468)."""
-    if scene.num_tris <= DENSE_CUTOFF:
-        return (*pack_scene(scene), None)
-    tri, mat, tab, leaf = pack_scene_leaves(scene, leaf_size)
-    if cam_vec is not None:
-        tri, leaf = order_leaves_near_to_far(tri, leaf, cam_vec[0:3].to(tri.device))
-    return tri, mat, tab, leaf
+    (render_kernel.py:468). ``pack_scene_frame`` gives the same, with the
+    leaf tables."""
+    return pack_scene_frame(scene, cam_vec, leaf_size)[:4]
 
 
 # the leaf tri pack's columns as the four float4 of csrc/hit.cuh::tri_hit4
@@ -245,11 +264,11 @@ _ROW4_COLUMNS = [0, 1, 2, 3, 4, 5, 6, 13, 7, 8, 9, 14, 10, 11, 12, 15]
 
 
 class LeafTables(NamedTuple):
-    """What the leaf sweeps read of a leaf pack, built once per render call
-    (``leaf_tables``): the pack, its cull hierarchy (ops/intersect.py::
-    leaf_groups) and, for the CUDA kernels, each triangle as four float4
-    rows and an int32 (material, original index) pair. Every table is
-    contiguous and 16-byte aligned."""
+    """What the leaf sweeps read of a leaf pack (``leaf_tables``, or
+    ``pack_scene_frame`` for a render from a camera): the pack, its cull
+    hierarchy (ops/intersect.py::leaf_groups) and, for the CUDA kernels,
+    each triangle as four float4 rows and an int32 (material, original
+    index) pair. Every table is contiguous and 16-byte aligned."""
 
     tri: torch.Tensor  # [NL * K, 18]
     leaf: torch.Tensor  # [NL, 8]
@@ -278,6 +297,112 @@ def leaf_launch_args(lt: LeafTables) -> tuple:
         lt.rows.data_ptr(), lt.ids.data_ptr(), lt.leaf.data_ptr(), lt.groups.data_ptr(), lt.supers.data_ptr(),
         n_leaves, lt.tri.shape[0] // n_leaves, lt.groups.shape[0], lt.supers.shape[0],
     )
+
+
+# the tensors of a Scene that the leaf pack reads, besides the materials
+# and the background (packed on every call)
+GEOMETRY = ("normal", "d", "edge_g", "edge_c", "mat_index", "bbox_min", "bbox_max")
+
+
+class _MortonPack(NamedTuple):
+    """The camera-independent part of a scene's leaf pack: its LeafTables in
+    Morton order, padded to whole super-groups (the rows of a super-group
+    are one block of each table), the super-groups' centres, the sort
+    keys' box (wavefront_kernel.py::_key_box) and the CIE rows of the
+    curve tables."""
+
+    morton: LeafTables
+    cent: torch.Tensor  # [NS, 3]
+    key_box: tuple[torch.Tensor, torch.Tensor]
+    cie: torch.Tensor  # [4, 95]
+
+
+class _Entry(NamedTuple):
+    refs: tuple  # weak references to the GEOMETRY tensors other than normal
+    versions: tuple[int, ...]  # the GEOMETRY tensors' _version
+    leaf_size: int
+    pack: _MortonPack
+
+
+class LeafPacks:
+    """The camera-independent leaf packs of large scenes, one per geometry
+    (``pack_scene_frame``), and how often one was built or served again.
+
+    An entry is keyed weakly by the scene's ``normal`` tensor, so that
+    dropping the geometry drops it. It serves while every GEOMETRY tensor
+    is the same object at the same ``_version`` (an in-place edit bumps it)
+    and the leaf size is the same, and never where grad mode is on and a
+    GEOMETRY tensor requires grad (that pack is built and not kept), or for
+    inference tensors, which keep no version. The counts are zeroed by
+    assigning 0, as the kernels' launch counts."""
+
+    def __init__(self):
+        self.entries = WeakIdKeyDictionary()
+        self.builds = 0
+        self.reuses = 0
+
+    def get(self, scene, leaf_size: int) -> _MortonPack:
+        geometry = [getattr(scene, k) for k in GEOMETRY]
+        keep = not any(x.is_inference() for x in geometry) and not (
+            torch.is_grad_enabled() and any(x.requires_grad for x in geometry)
+        )
+        if keep:
+            versions = tuple(x._version for x in geometry)
+            e = self.entries.get(scene.normal)
+            if (e is not None and e.leaf_size == leaf_size and e.versions == versions
+                    and all(r() is x for r, x in zip(e.refs, geometry[1:]))):
+                self.reuses += 1
+                return e.pack
+        self.builds += 1
+        pack = _morton_pack(scene, leaf_size)
+        if keep:
+            self.entries[scene.normal] = _Entry(tuple(weakref.ref(x) for x in geometry[1:]), versions, leaf_size,
+                                                pack)
+        return pack
+
+
+LEAF_PACKS = LeafPacks()
+
+
+def _morton_pack(scene, leaf_size: int) -> _MortonPack:
+    from .wavefront_kernel import _key_box
+
+    tri, _, tab, leaf = pack_scene_leaves(scene, leaf_size)
+    morton = leaf_tables(*_pad_super_groups(tri, leaf))
+    cent = 0.5 * (morton.supers[:, 0:3] + morton.supers[:, 3:6])
+    return _MortonPack(morton, cent, _key_box(morton.leaf), tab[:4])
+
+
+class ScenePack(NamedTuple):
+    """What a render of a scene from one camera reads (``pack_scene_frame``);
+    ``sweep`` and ``key_box`` are None for a dense pack."""
+
+    tri: torch.Tensor
+    mat: torch.Tensor
+    tab: torch.Tensor
+    leaf: torch.Tensor | None
+    sweep: LeafTables | None
+    key_box: tuple[torch.Tensor, torch.Tensor] | None
+
+
+def pack_scene_frame(scene, cam_vec=None, leaf_size: int = LEAF_SIZE) -> ScenePack:
+    """The scene's pack as ``pack_scene_auto`` makes it, with the leaf
+    tables and the sort keys' box of a leaf pack from a camera. Above
+    DENSE_CUTOFF triangles with ``cam_vec``, the Morton-order tables come
+    from LEAF_PACKS (built once per geometry) and each call packs the
+    materials and the background, orders the super-groups from the camera
+    and gathers the tables in that order: bit for bit the tables of
+    ``leaf_tables(*order_leaves_near_to_far(...))``, since a super-group is
+    a block of Morton-consecutive leaves of every table."""
+    if scene.num_tris <= DENSE_CUTOFF:
+        return ScenePack(*pack_scene(scene), None, None, None)
+    if cam_vec is None:
+        return ScenePack(*pack_scene_leaves(scene, leaf_size), None, None)
+    pack = LEAF_PACKS.get(scene, leaf_size)
+    order = _super_group_order(pack.cent, cam_vec[0:3].to(pack.cent.device))
+    sweep = LeafTables(*(_take_blocks(x, order) for x in pack.morton))
+    tab = torch.cat([pack.cie, scene.background_spd.to(torch.float32)[None]])
+    return ScenePack(sweep.tri, pack_materials(scene.materials), tab, sweep.leaf, sweep, pack.key_box)
 
 
 def n_uniforms(bounces: int) -> int:
@@ -578,7 +703,7 @@ def path_xyz(power, n_valid, cell, frac, tables):
 def render_rays_reference(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
     image_width, rand=None, steps=None, residuals=False, leaf_pack=None, visits=None,
-    group_visits=None, super_visits=None,
+    group_visits=None, super_visits=None, sweep=None,
 ):
     """The plain PyTorch version of the megakernel: XYZ [N, 3] summed over
     spp; with ``residuals``, the tuple (xyz, hero, n_valid, power, matres).
@@ -586,7 +711,8 @@ def render_rays_reference(
     ray-steps (bounces traced while its path was alive); with a
     ``leaf_pack`` (the leaf sweep), ``visits``, ``group_visits`` and
     ``super_visits`` (int32 [N]) receive the leaves, groups and
-    super-groups each pixel's rays entered."""
+    super-groups each pixel's rays entered; ``sweep``: the pack's
+    LeafTables (``leaf_tables``), built here when not given."""
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
@@ -598,7 +724,7 @@ def render_rays_reference(
     keys = None if rand is not None else pixel_keys(seed, px, py, image_width)
     accx, accy, accz = zero, zero, zero
     live = torch.zeros(n, dtype=torch.int32, device=dev)
-    leaves = None if leaf_pack is None else leaf_tables(tri_pack, leaf_pack)
+    leaves = None if leaf_pack is None else _sweep_of(tri_pack, leaf_pack, sweep)
     counts = (visits, group_visits, super_visits)
     for x in counts:
         if x is not None:
@@ -647,7 +773,7 @@ def render_rays_reference(
 def render_rays(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
     image_width, rand=None, steps=None, leaf_pack=None, visits=None, warp_steps=None,
-    group_visits=None, super_visits=None,
+    group_visits=None, super_visits=None, sweep=None,
 ) -> torch.Tensor:
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] f32.
 
@@ -658,10 +784,12 @@ def render_rays(
     ``leaf_pack``: the leaves of a ``pack_scene_leaves`` tri_pack, for the
     leaf sweep; ``visits``, ``group_visits``, ``super_visits``: optional
     int32 [N] outputs of the leaves, groups and super-groups entered;
-    ``warp_steps``: optional int32 [ceil(N / 32)] output of each warp's
-    sweeps (dense form on CUDA tensors only; 0 for a warp that did not
-    run). CUDA tensors launch the kernel (the leaf form with a leaf pack),
-    CPU tensors run the plain version."""
+    ``sweep``: the leaf pack's LeafTables (``leaf_tables``, or
+    ``pack_scene_frame``'s), built here when not given; ``warp_steps``:
+    optional int32 [ceil(N / 32)] output of each warp's sweeps (dense form
+    on CUDA tensors only; 0 for a warp that did not run). CUDA tensors
+    launch the kernel (the leaf form with a leaf pack), CPU tensors run the
+    plain version."""
     counts = (visits, group_visits, super_visits)
     _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps,
            group_visits, super_visits)
@@ -669,23 +797,24 @@ def render_rays(
         return render_rays_reference(
             cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
             image_width, rand, steps, leaf_pack=leaf_pack, visits=visits,
-            group_visits=group_visits, super_visits=super_visits,
+            group_visits=group_visits, super_visits=super_visits, sweep=sweep,
         )
     xyz = torch.empty((px.shape[0], 3), dtype=torch.float32, device=px.device)
     _launch(
         build.RENDER if leaf_pack is None else build.RENDER_LEAVES, cam_vec, seed, tri_pack,
         mat_pack, tables, px, py, spp, bounces, image_width, rand, xyz, steps, leaf_pack, counts,
-        warp_steps,
+        warp_steps, sweep=sweep,
     )
     return xyz
 
 
 def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-            image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, residuals=()):
+            image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, residuals=(), sweep=None):
     """Launch the megakernel (dense or leaf form, forward or residual) on
     CUDA tensors, writing xyz, steps, the leaf form's counts (visits,
     group_visits, super_visits) and the dense form's warp_steps (or None)
-    and the residual buffers."""
+    and the residual buffers; the leaf form reads ``sweep``, or the leaf
+    pack's tables built here."""
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
     f32 = torch.float32
@@ -705,7 +834,7 @@ def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, boun
             next_pixel = torch.zeros(1, dtype=torch.int32, device=px.device)
             counters += (next_pixel.data_ptr(),)
     else:
-        lt = leaf_tables(tri_pack, leaf_pack)
+        lt = _sweep_of(tri_pack, leaf_pack, sweep)
         scene = leaf_launch_args(lt)
         counters += tuple(_ptr(x) for x in counts)
     kernel.launch(
@@ -722,6 +851,19 @@ def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, boun
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def _sweep_of(tri_pack, leaf_pack, sweep):
+    """``sweep``, the LeafTables of (tri_pack, leaf_pack), once its shapes
+    are checked against them; built when None."""
+    if sweep is None:
+        return leaf_tables(tri_pack, leaf_pack)
+    if sweep.tri.shape != tri_pack.shape or sweep.leaf.shape != leaf_pack.shape:
+        raise ValueError(
+            f"sweep holds tables of a {tuple(sweep.tri.shape)} / {tuple(sweep.leaf.shape)} pack, "
+            f"not of this {tuple(tri_pack.shape)} / {tuple(leaf_pack.shape)} one"
+        )
+    return sweep
 
 
 def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
@@ -742,7 +884,7 @@ def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
 def render_rays_residuals(
     cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
     image_width, rand=None, steps=None, out=None, leaf_pack=None, visits=None, warp_steps=None,
-    group_visits=None, super_visits=None,
+    group_visits=None, super_visits=None, sweep=None,
 ):
     """``render_rays`` that also records the path residuals: returns
     (xyz [N, 3], hero [spp, N], n_valid [spp, N], power [spp, W, N],
@@ -761,7 +903,7 @@ def render_rays_residuals(
         xyz, *res = render_rays_reference(
             cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
             image_width, rand, steps, residuals=True, leaf_pack=leaf_pack, visits=visits,
-            group_visits=group_visits, super_visits=super_visits,
+            group_visits=group_visits, super_visits=super_visits, sweep=sweep,
         )
         for o, r in zip(out, res):
             o.copy_(r)
@@ -770,7 +912,7 @@ def render_rays_residuals(
     _launch(
         build.RENDER_RESIDUALS if leaf_pack is None else build.RENDER_LEAVES_RESIDUALS,
         cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-        image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, out,
+        image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, out, sweep,
     )
     return (xyz, *out)
 
@@ -785,17 +927,18 @@ def render_chunk(
     """Accumulated-XYZ chunk [height, width, 3] on the scene's device
     (counterpart of render_chunk_pallas). At most DENSE_CUTOFF triangles:
     one launch of the dense megakernel. Above: the leaf pack, its leaves
-    near-to-far from the camera, then with more than one leaf the sorted
-    per-bounce scheduler (``sched="sorted"``, the default) or the leaf
-    megakernel (``sched="mega"``; the JAX package's BVH_SCHED). Pixels are
-    row-major; ``rand`` [spp, n_uniforms(bounces), height * width] injects
+    near-to-far from the camera (``pack_scene_frame``: the pack and its
+    leaf tables built once per geometry), then with more than one leaf
+    the sorted per-bounce scheduler (``sched="sorted"``, the default) or
+    the leaf megakernel (``sched="mega"``; the JAX package's BVH_SCHED).
+    Pixels are row-major; ``rand`` [spp, n_uniforms(bounces), height * width] injects
     the draws in that order, else they are hashed from ``seed``."""
     if sched not in SCHEDULERS:
         raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
     dev = scene.normal.device
     cam_vec = camera_vector(cam).to(dev)
     with span("render.pack"):
-        tri, mat, tab, leaf = pack_scene_auto(scene, cam_vec)
+        tri, mat, tab, leaf, sweep, key_box = pack_scene_frame(scene, cam_vec)
     ys, xs = torch.meshgrid(
         torch.arange(y0, y0 + height, device=dev),
         torch.arange(x0, x0 + width, device=dev),
@@ -807,10 +950,12 @@ def render_chunk(
             from .wavefront_kernel import render_rays_wavefront
 
             xyz = render_rays_wavefront(
-                cam_vec, seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand
+                cam_vec, seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand, sweep=sweep,
+                key_box=key_box,
             )
         else:
             xyz = render_rays(
-                cam_vec, seed, tri, mat, tab, px, py, spp, bounces, cam.image_width, rand, leaf_pack=leaf
+                cam_vec, seed, tri, mat, tab, px, py, spp, bounces, cam.image_width, rand, leaf_pack=leaf,
+                sweep=sweep,
             )
     return xyz.reshape(height, width, 3)

@@ -46,12 +46,12 @@ from .render_kernel import (
     W,
     _check,
     _ptr,
+    _sweep_of,
     camera_rays,
     hash_uniforms,
     hero_curves,
     hero_wavelength,
     leaf_launch_args,
-    leaf_tables,
     n_uniforms,
     path_xyz,
     pixel_keys,
@@ -121,10 +121,6 @@ def _store(st, cols, ray, power, alive, n_valid, hero=None):
         st[_ROW_PREV, cols] = -1.0
 
 
-def _leaves(tri_pack, leaf_pack, sweep):
-    return sweep if sweep is not None else leaf_tables(tri_pack, leaf_pack)
-
-
 def _counts(n_rays, dev, visits, group_visits, super_visits):
     """Zeroed int32 [R] counters where the [spp, N] outputs are wanted."""
     return tuple(
@@ -154,7 +150,7 @@ def camera_bounce_reference(
     cnt = _counts(spp * n, dev, visits, group_visits, super_visits)
     ray, power, alive, n_valid, mres = trace_bounce(
         ray, [one] * W, one, torch.full_like(one, float(W)), hero_curves(hero, tables),
-        u[3], u[4], u[5], tri_pack, mat_pack, _leaves(tri_pack, leaf_pack, sweep), cnt,
+        u[3], u[4], u[5], tri_pack, mat_pack, _sweep_of(tri_pack, leaf_pack, sweep), cnt,
     )
     _store(state, r, ray, power, alive, n_valid, hero)
     if matres is not None:
@@ -184,7 +180,7 @@ def bounce_reference(
     cnt = _counts(o.shape[0], o.device, visits, group_visits, super_visits)
     ray, power, alive, n_valid, mres = trace_bounce(
         ray, power, alive, n_valid, hero_curves(state[_ROW_HERO], tables),
-        u[0], u[1], u[2], tri_pack, mat_pack, _leaves(tri_pack, leaf_pack, sweep), cnt,
+        u[0], u[1], u[2], tri_pack, mat_pack, _sweep_of(tri_pack, leaf_pack, sweep), cnt,
     )
     _store(state, slice(None), ray, power, alive, n_valid)
     if matres is not None:
@@ -225,7 +221,7 @@ def _launch_camera(cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py,
     """The camera kernel; ``next_col``: its column counter, one int32 that is
     0 (made here when not given); ``warp_passes``: two int64 that the launch
     adds its warp passes and lanes at work to, or None."""
-    lt = _leaves(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
+    lt = _sweep_of(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
     if next_col is None:
         next_col = torch.zeros(1, dtype=torch.int32, device=px.device)
     build.WAVEFRONT_CAMERA.launch(
@@ -240,7 +236,7 @@ def _launch_bounce(seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bou
                    image_width, rand, state, orig, matres=None, steps=None, visits=None, group_visits=None,
                    super_visits=None, sweep=None, next_col=None, warp_passes=None):
     """The bounce kernel; ``next_col`` and ``warp_passes`` as _launch_camera's."""
-    lt = _leaves(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
+    lt = _sweep_of(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
     if next_col is None:
         next_col = torch.zeros(1, dtype=torch.int32, device=px.device)
     build.WAVEFRONT_BOUNCE.launch(
@@ -264,7 +260,7 @@ _CUDA = (_launch_camera, _launch_bounce, _launch_integrate)
 
 
 def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-               image_width, rand, save_residuals, counters, out, warp_passes=None):
+               image_width, rand, save_residuals, counters, out, warp_passes=None, sweep=None, key_box=None):
     _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, None, leaf_pack)
     n = px.shape[0]
     dev = px.device
@@ -291,7 +287,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
     matres = res[3] if res is not None else None
     scene = (tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces)
     with span("sched.tables"):
-        sweep = leaf_tables(tri_pack, leaf_pack)
+        sweep = _sweep_of(tri_pack, leaf_pack, sweep)
 
     with span("sched.camera"):
         if kernels is _CUDA:
@@ -305,7 +301,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
         camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep, **launch[0])
         orig = torch.arange(nrays, dtype=torch.int32, device=dev)
         if bounces > 1:
-            lo, inv_ext = _key_box(leaf_pack)
+            lo, inv_ext = key_box if key_box is not None else _key_box(leaf_pack)
     for b in range(1, bounces):
         with span("sched.sort"):
             perm = torch.argsort(_sort_keys(state, lo, inv_ext), stable=True)
@@ -323,7 +319,7 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
 def render_rays_wavefront(
     cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
     image_width, rand=None, save_residuals=False, steps=None, visits=None, out=None,
-    group_visits=None, super_visits=None, warp_passes=None,
+    group_visits=None, super_visits=None, warp_passes=None, sweep=None, key_box=None,
 ):
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] through
     the sorted per-bounce scheduler, over the leaf pack (tri_pack [NL * K,
@@ -339,17 +335,19 @@ def render_rays_wavefront(
     tracing launches (row 0 the camera launch, b bounce b), CUDA tensors
     only: each launch's warp passes and the lanes at work in them
     (csrc/wavefront_kernel.cu::trace_columns); [:, 1] / (32 x [:, 0]) is the
-    share of lanes at work, the lane efficiency. The
-    leaf tables (render_kernel.py::leaf_tables) are built
-    once and read by every launch. CUDA tensors launch the
-    kernels (one camera launch, bounces - 1 bounce launches, one integrate
-    launch), CPU tensors run their plain versions."""
+    share of lanes at work, the lane efficiency. Every launch reads the
+    leaf tables ``sweep`` (render_kernel.py::leaf_tables, or
+    ``pack_scene_frame``'s) and the sort keys take the box ``key_box``
+    (``_key_box`` of the leaf pack); each is built here when not given.
+    CUDA tensors launch the kernels (one camera launch, bounces - 1 bounce
+    launches, one integrate launch), CPU tensors run their plain versions."""
     kernels = _PLAIN if px.device.type == "cpu" else _CUDA
     if px.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {px.device}")
     return _wavefront(
         kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
         image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out, warp_passes,
+        sweep, key_box,
     )
 
 

@@ -17,17 +17,23 @@ request id, which every span inside them shares (0 outside any).
 
 ``summary()`` reduces the list by name when it is read: count, total and
 self seconds (the duration less the child spans'), beside the kernels'
-launch counts (ops/cuda/build.py). ``reset()`` clears the list.
+launch counts (ops/cuda/build.py) and the large scenes' leaf packs built
+and served again (ops/cuda/render_kernel.py::LEAF_PACKS: a build per
+geometry, a reuse per frame or step after it). ``reset()`` clears the
+list.
 
 The spans and where they are:
 
     render.frame      RenderManager.render, a request
     render.wait       its chunk's and image's copies to the host
     render.image      RenderManager.image
-    render.pack       render_chunk's pack_scene_auto
+    render.pack       render_chunk's pack_scene_frame (a large scene's
+                      leaf pack looked up or built, then ordered from the
+                      camera)
     render.launch     render_chunk's call into the kernels
     sched.tables, sched.camera, sched.sort, sched.bounce, sched.integrate
-                      the sorted scheduler: the leaf tables, the camera
+                      the sorted scheduler: the leaf tables (taken from
+                      the pack, or built), the camera
                       launch (and the keys' box), each bounce's keys, argsort
                       and gathers, the bounce launches, the integrate step
     train.step        train_step_fused, a request
@@ -146,8 +152,11 @@ def summary() -> dict:
     """``spans``: {name: {"count", "total_s", "self_s"}} over the closed
     spans since the last reset(), where self is the duration less that of
     the span's children; ``launches``: {kernel: launches} of the kernels
-    launched since their counts were last zeroed."""
+    launched since their counts were last zeroed; ``leaf_packs``:
+    {"builds", "reuses"} of the large scenes' leaf packs since those counts
+    were last zeroed."""
     from ..ops.cuda.build import KERNELS
+    from ..ops.cuda.render_kernel import LEAF_PACKS
 
     spans = _REC.spans
     child_ns = [0] * len(spans)
@@ -163,7 +172,11 @@ def summary() -> dict:
         d["count"] += 1
         d["total_s"] += dur * 1e-9
         d["self_s"] += max(dur - c, 0) * 1e-9
-    return {"spans": out, "launches": {k.name: k.launches for k in KERNELS.values() if k.launches}}
+    return {
+        "spans": out,
+        "launches": {k.name: k.launches for k in KERNELS.values() if k.launches},
+        "leaf_packs": {"builds": LEAF_PACKS.builds, "reuses": LEAF_PACKS.reuses},
+    }
 
 
 def reset() -> None:

@@ -30,19 +30,22 @@ import numpy as np
 import pytest
 import torch
 
+from spectral_tpu_torch.config import RenderParams
 from spectral_tpu_torch.diff import render_chunk_diff_fused
-from spectral_tpu_torch.models.camera import camera_vector
+from spectral_tpu_torch.models.camera import camera_vector, make_camera
 from spectral_tpu_torch.models.scenes import CORNELL, PRISM, TRIS, build_scene, build_tri_field, scene_camera
 from spectral_tpu_torch.ops.cuda import build
 from spectral_tpu_torch.ops.cuda.grad_kernel import launch_shape, render_grads, render_grads_reference
 from spectral_tpu_torch.ops.cuda import wavefront_kernel
 from spectral_tpu_torch.ops.cuda.intersect_kernel import MAX_TRIS, intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
+    LEAF_PACKS,
     leaf_tables,
     n_uniforms,
     order_leaves_near_to_far,
     pack_scene,
     pack_scene_auto,
+    pack_scene_frame,
     pack_scene_leaves,
     render_rays,
     render_rays_reference,
@@ -55,6 +58,7 @@ from spectral_tpu_torch.ops.cuda.wavefront_kernel import (
 )
 from spectral_tpu_torch.parallel import train_step_fused, trainable_params
 from spectral_tpu_torch.ops.intersect import nearest_hit
+from spectral_tpu_torch.runtime.render_manager import RenderManager
 
 
 @pytest.fixture
@@ -762,6 +766,49 @@ def test_warp_passes_output_changes_nothing_else(cuda_device):
         assert torch.equal(a, b)
     assert (passes > 0).all() and (passes[:, 1] <= 32 * passes[:, 0]).all()
     assert torch.equal(render_rays_wavefront(*wf_args), outs[1][0])
+
+
+@pytest.mark.cuda
+def test_field_frames_reuse_the_leaf_pack(cuda_device):
+    """Two frames of the 10k field at two poses through RenderManager: the
+    first builds the scene's leaf pack, the second is served from it and
+    its XYZ is bit-equal to a cold render of its pose; render_rays_wavefront
+    gives the same image, residuals and counters with and without the
+    served tables (sweep=, key_box=)."""
+    scene = build_tri_field(10008, seed=0, device=cuda_device)
+    params = RenderParams(xres=128, aspect_ratio=2.0, nsamples=4, bounce_limit=6, device="cuda", show=False)
+    cams = [make_camera(128, 64, vfov=40.0, lookfrom=eye, lookat=(278.0, 278.0, 0.0), vup=(0.0, 1.0, 0.0),
+                        device=cuda_device) for eye in ((278.0, 278.0, -800.0), (139.0, 278.0, -788.0))]
+
+    def frame(cam):
+        got = {}
+        RenderManager(scene, cam, params).render(on_chunk=lambda _c, fb: got.__setitem__("xyz", fb.copy()))
+        return got["xyz"]
+
+    b0, r0 = LEAF_PACKS.builds, LEAF_PACKS.reuses
+    served = [frame(cam) for cam in cams]
+    assert (LEAF_PACKS.builds - b0, LEAF_PACKS.reuses - r0) == (1, 1)
+    LEAF_PACKS.entries.clear()
+    cold = frame(cams[1])
+    assert (LEAF_PACKS.builds - b0, LEAF_PACKS.reuses - r0) == (2, 1)
+    np.testing.assert_array_equal(served[1], cold)
+    assert served[1].sum() > 0 and not np.array_equal(served[0], served[1])
+
+    w, h, spp, bounces = 64, 32, 4, 6
+    cv = camera_vector(cams[1])
+    pack = pack_scene_frame(scene, cv)
+    px = (torch.arange(w * h, device=cuda_device) % w).float()
+    py = (torch.arange(w * h, device=cuda_device) // w).float()
+    wf_args = (cv, 1984, pack.tri, pack.mat, pack.tab, pack.leaf, px, py, spp, bounces, 128, None)
+    outs = []
+    for given in ({"sweep": pack.sweep, "key_box": pack.key_box}, {}):
+        counts = [torch.zeros((spp, w * h), dtype=torch.int32, device=cuda_device) for _ in range(4)]
+        got = render_rays_wavefront(*wf_args, save_residuals=True, steps=counts[0], visits=counts[1],
+                                    group_visits=counts[2], super_visits=counts[3], **given)
+        outs.append((*got, *counts))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
