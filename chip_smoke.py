@@ -227,21 +227,23 @@ import tempfile  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# the card's published peaks and the FP32 operations of a unit of work, as
+# the benchmark counts them
+from port_bench.roofline import (  # noqa: E402
+    GRAD_FLOPS_PER_MATERIAL,
+    GRAD_FLOPS_PER_MISS,
+    GRAD_FLOPS_PER_SAMPLE,
+    PEAK_BYTES,
+    PEAK_FP32_FLOPS,
+    SAMPLE_FLOPS,
+    SHADE_FLOPS_PER_STEP,
+    SWEEP_FLOPS_PER_TRI,
+)
+
 # render tolerance (tests/test_torch_render.py): per value and mean
 ATOL, RTOL, MEAN_TOL = 2e-3, 1e-5, 2e-5
-# FP32 operations counted from the sources (csrc/*.cu notes)
-SWEEP_FLOPS_PER_TRI = 51
-SHADE_FLOPS_PER_STEP = 340
-SAMPLE_FLOPS = 340
-# the replay (csrc/grad_kernel.cu): per sample-ray, per sample-ray with a
-# background miss, per material present in a sample-ray's path, and the
-# Sellmeier scalars' share of the first and third
-GRAD_FLOPS_PER_SAMPLE = 189
-GRAD_FLOPS_PER_MISS = 56
-GRAD_FLOPS_PER_MATERIAL = 203
+# the Sellmeier scalars' share of the replay's operations per sample-ray
+# and per material present in a sample-ray's path (csrc/grad_kernel.cu)
 SELL_FLOPS_PER_SAMPLE = 189
 SELL_FLOPS_PER_MATERIAL = 70
 # power residual tolerance (tests/test_wavefront_sorted.py:127); replay
@@ -444,7 +446,7 @@ def check_render(name: str, args) -> tuple[float, float, int, float, float]:
     lane efficiency."""
     from spectral_tpu_torch.ops.cuda.render_kernel import render_rays, render_rays_reference
 
-    n, dev = args[5].numel(), args[5].device
+    n, dev = args[3].numel(), args[3].device
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
     ref_steps = torch.zeros_like(steps)
     warps = warp_buffer(n, dev)
@@ -478,8 +480,8 @@ def check_residuals(name: str, args):
         render_rays, render_rays_reference, render_rays_residuals,
     )
 
-    n, spp, bounces = args[5].numel(), args[7], args[8]
-    dev = args[5].device
+    n, spp, bounces = args[3].numel(), args[5], args[6]
+    dev = args[3].device
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
     ref_steps = torch.zeros_like(steps)
     warps = warp_buffer(n, dev)
@@ -605,21 +607,22 @@ def compare_residuals(name: str, got, ref) -> tuple[float, float]:
 
 
 def field_args(scene, w: int, h: int, spp: int, bounces: int, rand, seed: int, leaf_size=None):
-    """The arguments of the large-scene renders of ``scene`` at w x h and
-    its leaf pack, near-to-far from the Cornell camera."""
+    """The arguments of the large-scene renders of ``scene`` at w x h, its
+    pack from the Cornell camera (leaves near to far) among them, and the
+    pack's leaves."""
     from spectral_tpu_torch.models.camera import camera_vector
     from spectral_tpu_torch.models.scenes import CORNELL, scene_camera
-    from spectral_tpu_torch.ops.cuda.render_kernel import LEAF_SIZE, pack_scene_auto
+    from spectral_tpu_torch.ops.cuda.render_kernel import LEAF_SIZE, pack_scene_frame
 
     dev = scene.normal.device
     cam = camera_vector(scene_camera(CORNELL, w, h, dev))
-    tri, mat, tab, leaf = pack_scene_auto(scene, cam, leaf_size or LEAF_SIZE)
+    pack = pack_scene_frame(scene, cam, leaf_size or LEAF_SIZE)
     px = (torch.arange(w * h, device=dev) % w).float()
     py = (torch.arange(w * h, device=dev) // w).float()
-    return (cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand), leaf
+    return (cam, seed, pack, px, py, spp, bounces, w, rand), pack.leaf
 
 
-def check_leaves(name: str, args, leaf) -> dict:
+def check_leaves(name: str, args) -> dict:
     """The leaf megakernel (forward, and residual into garbage) and the
     sorted scheduler (forward and residual) against their plain versions,
     and the two schedulers against each other: xyz, every residual, live
@@ -629,24 +632,22 @@ def check_leaves(name: str, args, leaf) -> dict:
     from spectral_tpu_torch.ops.cuda.render_kernel import render_rays, render_rays_reference, render_rays_residuals
     from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront, render_rays_wavefront_reference
 
-    n, spp, bounces = args[5].numel(), args[7], args[8]
-    dev = args[5].device
-    wf = (*args[:5], leaf, *args[5:])
+    n, spp, bounces = args[3].numel(), args[5], args[6]
+    dev = args[3].device
     names = ("steps", "visits", "group_visits", "super_visits")
     c = [dict(zip(names, (torch.zeros(n, dtype=torch.int32, device=dev) for _ in names))) for _ in range(2)]
     wc = [dict(zip(names, (torch.zeros((spp, n), dtype=torch.int32, device=dev) for _ in names))) for _ in range(2)]
-    fwd = render_rays(*args, c[0]["steps"], leaf_pack=leaf, **{k: v for k, v in c[0].items() if k != "steps"})
-    res = render_rays_residuals(*args, out=garbage(spp, bounces, n, dev), leaf_pack=leaf)
-    wres = render_rays_wavefront(*wf, save_residuals=True, out=garbage(spp, bounces, n, dev), **wc[0])
-    wfwd = render_rays_wavefront(*wf)
+    fwd = render_rays(*args, c[0]["steps"], **{k: v for k, v in c[0].items() if k != "steps"})
+    res = render_rays_residuals(*args, out=garbage(spp, bounces, n, dev))
+    wres = render_rays_wavefront(*args, save_residuals=True, out=garbage(spp, bounces, n, dev), **wc[0])
+    wfwd = render_rays_wavefront(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = render_rays_reference(*args, c[1]["steps"], residuals=True, leaf_pack=leaf,
-                                **{k: v for k, v in c[1].items() if k != "steps"})
+    ref = render_rays_reference(*args, c[1]["steps"], residuals=True, **{k: v for k, v in c[1].items() if k != "steps"})
     torch.cuda.synchronize()
     mega_plain_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    wref = render_rays_wavefront_reference(*wf, save_residuals=True, **wc[1])
+    wref = render_rays_wavefront_reference(*args, save_residuals=True, **wc[1])
     torch.cuda.synchronize()
     sorted_plain_ms = 1e3 * (time.perf_counter() - t0)
     for k in names:
@@ -676,31 +677,16 @@ def check_leaves(name: str, args, leaf) -> dict:
 def integrate_step(integrate, tab, state, orig, n: int, spp: int, res=(), launched=None):
     """The integrate step of ops/cuda/wavefront_kernel.py::_wavefront on a
     final state: XYZ [N, 3] summed over the samples in ascending order, and
-    with ``res`` = (hero, n_valid, power) the residuals. A checkout whose
-    integrate writes the XYZ of each sample-ray gets the sum from PyTorch
-    adds, as its _wavefront does; ``launched``, an event, is recorded just
-    after the integrate launch."""
-    import inspect
-
-    dev = state.device
-    if "pixel_xyz" in inspect.signature(integrate).parameters:
-        xyz = torch.empty((n, 3), device=dev)
-        integrate(tab, state, orig, n, spp, xyz, *res)
-        if launched is not None:
-            launched.record()
-        return xyz
-    xyz_rays = torch.empty((spp * n, 3), device=dev)
-    integrate(tab, state, orig, n, spp, xyz_rays, *res)
+    with ``res`` = (hero, n_valid, power) the residuals; ``launched``, an
+    event, is recorded just after the integrate launch."""
+    xyz = torch.empty((n, 3), device=state.device)
+    integrate(tab, state, orig, n, spp, xyz, *res)
     if launched is not None:
         launched.record()
-    per_sample = xyz_rays.reshape(spp, n, 3)
-    xyz = torch.zeros((n, 3), device=dev)
-    for s in range(spp):
-        xyz = xyz + per_sample[s]
     return xyz
 
 
-def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> dict:
+def timed_sorted(args, plain: bool, reps: int = 1, check: bool = True) -> dict:
     """One sorted-scheduler render through the kernels (or their plain
     versions), the glue of ops/cuda/wavefront_kernel.py repeated here so
     that each launch is timed with CUDA events; the best of ``reps``
@@ -712,40 +698,33 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> 
     run again on the same final state); the live ray-steps of bounces >= 1
     (``live``), the boxes entered by the camera launch and by the bounce
     launches (``b_cam``, ``b_bounce``: dicts of leaves, groups,
-    super-groups), and the outputs of the two integrate steps (``out``:
-    xyz [N, 3], hero, n_valid, power); with ``check``, the two steps' xyz
-    must be equal. A checkout from before the group tables counts leaves
-    only."""
-    import inspect
-
-    from spectral_tpu_torch.ops.cuda import render_kernel as rk
+    super-groups), the lanes at work over 32 x warp passes of the kernels
+    (``lanes_cam``, ``lanes_bounce``) and the outputs of the two integrate
+    steps (``out``: xyz [N, 3], hero, n_valid, power); with ``check``, the
+    two steps' xyz must be equal."""
     from spectral_tpu_torch.ops.cuda import wavefront_kernel as wk
 
-    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    cam, seed, pack, px, py, spp, bounces, w, rand = args
     camera, bounce, integrate = wk._PLAIN if plain else wk._CUDA
-    grouped = "sweep" in inspect.signature(camera).parameters
-    counts_passes = "warp_passes" in inspect.signature(camera).parameters
     n = px.numel()
     nrays = spp * n
     dev = px.device
-    sweep = {"sweep": rk.leaf_tables(tri, leaf)} if grouped else {}
-    levels = ("visits", "group_visits", "super_visits") if grouped else ("visits",)
+    levels = ("visits", "group_visits", "super_visits")
     best = None
     for rep in range(reps + 1):
         steps = torch.zeros((spp, n), dtype=torch.int32, device=dev)
         boxes = {k: torch.zeros_like(steps) for k in levels}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * bounces + 6)]
         state = torch.empty((wk.STATE_ROWS, nrays), device=dev)
-        # each tracing launch's warp passes and lanes at work, where the port counts them
-        passes = torch.zeros((bounces, 2), dtype=torch.int64, device=dev) if counts_passes else None
-        wp = (lambda b: {"warp_passes": passes[b]}) if counts_passes else (lambda b: {})
+        # each tracing launch's warp passes and lanes at work (the kernels count them)
+        passes = None if plain else torch.zeros((bounces, 2), dtype=torch.int64, device=dev)
+        wp = (lambda b: {}) if plain else (lambda b: {"warp_passes": passes[b]})
         ev[0].record()
-        camera(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state, None, steps, **boxes, **sweep,
-               **wp(0))
+        camera(cam, seed, pack, px, py, spp, bounces, w, rand, state, None, steps, **boxes, **wp(0))
         ev[1].record()
         b_cam = {k: int(v.to(torch.int64).sum()) for k, v in boxes.items()}
         orig = torch.arange(nrays, dtype=torch.int32, device=dev)
-        lo, inv_ext = wk._key_box(leaf)
+        lo, inv_ext = pack.key_box
         k = 2
         for b in range(1, bounces):
             ev[k].record()
@@ -753,16 +732,15 @@ def timed_sorted(args, leaf, plain: bool, reps: int = 1, check: bool = True) -> 
             state = state.index_select(1, perm)
             orig = orig.index_select(0, perm)
             ev[k + 1].record()
-            bounce(seed, tri, mat, tab, leaf, px, py, spp, bounces, b, w, rand, state, orig, None, steps, **boxes,
-                   **sweep, **wp(b))
+            bounce(seed, pack, px, py, spp, bounces, b, w, rand, state, orig, None, steps, **boxes, **wp(b))
             ev[k + 2].record()
             k += 3
         res = (torch.empty((spp, n), device=dev), torch.empty((spp, n), device=dev),
                torch.empty((spp, 7, n), device=dev))
         ev[k].record()
-        xyz = integrate_step(integrate, tab, state, orig, n, spp, launched=ev[k + 1])
+        xyz = integrate_step(integrate, pack.tab, state, orig, n, spp, launched=ev[k + 1])
         ev[k + 2].record()
-        xyz_res = integrate_step(integrate, tab, state, orig, n, spp, res)
+        xyz_res = integrate_step(integrate, pack.tab, state, orig, n, spp, res)
         ev[k + 3].record()
         torch.cuda.synchronize()
         out = dict(
@@ -811,17 +789,14 @@ def sweep_work(live: int, boxes: dict, leaf, k_size: int) -> tuple[float, float,
     return flops, flat, {k: v / max(live, 1) for k, v in tests.items()}
 
 
-def leaf_work(args, leaf) -> tuple[float, float, int]:
+def leaf_work(args) -> tuple[float, float, int]:
     """(scene bytes, ray bytes read and written by a forward, leaf size) of
     a large-scene render: the scene as the kernels read it, the leaf tables
-    (ops/cuda/render_kernel.py::leaf_tables; a checkout from before them
-    reads the leaf pack), the materials, curves and camera."""
-    from spectral_tpu_torch.ops.cuda import render_kernel as rk
-
-    cam, _, tri, mat, tab, px, *_ = args
-    tables = rk.leaf_tables(tri, leaf)[1:] if hasattr(rk, "leaf_tables") else (tri, leaf)
-    scene_bytes = sum(x.numel() * x.element_size() for x in (*tables, mat, tab, cam))
-    return scene_bytes, 4 * 5 * px.numel(), tri.shape[0] // leaf.shape[0]
+    of the pack (ops/cuda/render_kernel.py::leaf_tables), the materials,
+    curves and camera."""
+    cam, _, pack, px, *_ = args
+    scene_bytes = sum(x.numel() * x.element_size() for x in (*pack.sweep[1:], pack.mat, pack.tab, cam))
+    return scene_bytes, 4 * 5 * px.numel(), pack.tri.shape[0] // pack.leaf.shape[0]
 
 
 def integrate_bound(n: int, spp: int) -> tuple[float, str, float]:
@@ -836,19 +811,19 @@ def integrate_bound(n: int, spp: int) -> tuple[float, str, float]:
     return fwd, by, res
 
 
-def sorted_report(name: str, args, leaf, plain: bool) -> dict:
+def sorted_report(name: str, args, plain: bool) -> dict:
     """The sorted kernels on one frame, timed per launch (timed_sorted, the
     best of 3) and, with ``plain``, held bit-equal to their plain versions
     in xyz, the integrate step's residuals and every count; the bounds of
     the camera and bounce launches under the group hierarchy and, for
     comparison, under the flat sweep over the same pack, and of the
     integrate step; slab tests per live ray-step by level."""
-    scene_bytes, _, k_size = leaf_work(args, leaf)
-    n_rays, spp, bounces = args[5].numel(), args[7], args[8]
+    scene_bytes, _, k_size = leaf_work(args)
+    leaf, n_rays, spp, bounces = args[2].leaf, args[3].numel(), args[5], args[6]
     samples = n_rays * spp
-    r = timed_sorted(args, leaf, False, reps=3)
+    r = timed_sorted(args, False, reps=3)
     if plain:
-        p = timed_sorted(args, leaf, True)
+        p = timed_sorted(args, True)
         same = all(p[k] == r[k] for k in ("live", "b_cam", "b_bounce"))
         if not same or not all(torch.equal(a, b) for a, b in zip(p["out"], r["out"])):
             raise SystemExit(f"sorted scheduler, {name}: the kernels differ from their plain versions")
@@ -867,7 +842,7 @@ def sorted_report(name: str, args, leaf, plain: bool) -> dict:
     r["int_bound"], r["int_by"], r["int_res_bound"] = integrate_bound(n_rays, spp)
     plain_ms = f" (plain {r['p_cam']} / {r['p_bounce']} / {r['p_int']})" if plain else ""
     lanes = (f"; lane efficiency (lanes at work / 32 x warp passes): camera {r['lanes_cam']:.3f}, bounces "
-             f"{r['lanes_bounce']:.3f}") if "lanes_cam" in r else ""
+             f"{r['lanes_bounce']:.3f}")
     log(f"  sorted, {name}: camera {r['cam_ms']} ms, {bounces - 1} bounces {r['bounce_ms']} ms, integrate step "
         f"{r['step_ms']} ms (its launch {r['int_ms']} ms; residual form {r['step_res_ms']} ms){plain_ms}, sort and "
         f"gather {r['glue_ms']} ms; bounds {r['cam_bound']} ({r['cam_by']}; flat sweep {r['cam_flat_bound']}), "
@@ -890,9 +865,8 @@ def leaf_size_sweep(dev) -> int:
         scene = build_tri_field(n_tris, 0, device=dev)
         for k in (8, 16, 32, 64, 128):
             args, leaf = field_args(scene, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES, None, FIELD_SEED, k)
-            wf = (*args[:5], leaf, *args[5:])
-            sorted_ms = cuda_ms(lambda: render_rays_wavefront(*wf), 2)
-            mega_ms = cuda_ms(lambda: render_rays(*args, leaf_pack=leaf), 1) if n_tris == FIELD_TRIS else None
+            sorted_ms = cuda_ms(lambda: render_rays_wavefront(*args), 2)
+            mega_ms = cuda_ms(lambda: render_rays(*args), 1) if n_tris == FIELD_TRIS else None
             rows.append({"tris": n_tris, "leaf_size": k, "leaves": leaf.shape[0], "sorted_ms": sorted_ms, "mega_ms": mega_ms})
             log(f"  {n_tris} tris, leaf size {k} ({leaf.shape[0]} leaves): sorted {sorted_ms} ms, leaf megakernel {mega_ms} ms")
     print(json.dumps({"leaf_sizes": rows, "frame": f"{FIELD_W}x{FIELD_H}, {FIELD_SPP} spp, {FIELD_BOUNCES} bounces"}), flush=True)
@@ -952,7 +926,6 @@ def time_kernels(root: str) -> int:
     outputs, the lane efficiency (where the port reports warp sweeps) and
     ptxas's lines for the render kernels."""
     import hashlib
-    import inspect
 
     sys.path.insert(0, os.path.abspath(root))
     import spectral_tpu_torch
@@ -971,27 +944,25 @@ def time_kernels(root: str) -> int:
     build.build_all(build.KERNELS.values())
     ptxas = [ln.split(":", 1)[-1].strip() for k in (build.RENDER, build.WAVEFRONT_CAMERA, build.GRAD)
              for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    tri, mat, tab = rk.pack_scene(build_scene(CORNELL, dev))
+    pack = rk.scene_pack(*rk.pack_scene(build_scene(CORNELL, dev)))
 
     def frame(w, h, spp, bounces, seed):
         cam = camera_vector(scene_camera(CORNELL, w, h, dev))
         px = (torch.arange(w * h, device=dev) % w).float()
         py = (torch.arange(w * h, device=dev) // w).float()
-        return (cam, seed, tri, mat, tab, px, py, spp, bounces, w, None)
+        return (cam, seed, pack, px, py, spp, bounces, w, None)
 
     a2 = frame(600, 600, 500, 10, chunk_seed(0, 0, 600))
     a3 = frame(TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_BOUNCES, TRAIN_SEED)
     field = build_tri_field(FIELD_TRIS, 0, device=dev)
-    fa, leaf = field_args(field, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
-                          None, chunk_seed(0, 0, FIELD_W))
+    fa, _ = field_args(field, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES, None, chunk_seed(0, 0, FIELD_W))
     runs = {
-        "render": (a2, {}, rk.render_rays, 2),
-        "render_residuals": (a3, {}, rk.render_rays_residuals, 5),
-        "render_leaves": (fa, {"leaf_pack": leaf}, rk.render_rays, 5),
-        "render_leaves_residuals": (fa, {"leaf_pack": leaf}, rk.render_rays_residuals, 5),
+        "render": (a2, rk.render_rays, 2),
+        "render_residuals": (a3, rk.render_rays_residuals, 5),
+        "render_leaves": (fa, rk.render_rays, 5),
+        "render_leaves_residuals": (fa, rk.render_rays_residuals, 5),
     }
     ms, digest, lanes = {}, {}, {}
-    warps = "warp_steps" in inspect.signature(rk.render_rays).parameters
 
     def sha(tensors) -> str:
         h = hashlib.sha256()
@@ -1000,18 +971,18 @@ def time_kernels(root: str) -> int:
         return h.hexdigest()[:16]
 
     replay_in = {}
-    for name, (args, kw, fn, reps) in runs.items():
-        steps = torch.zeros(args[5].numel(), dtype=torch.int32, device=dev)
-        extra = {"warp_steps": warp_buffer(args[5].numel(), dev)} if warps and not kw else {}
-        out = fn(*args, steps, **kw, **extra)
+    for name, (args, fn, reps) in runs.items():
+        steps = torch.zeros(args[3].numel(), dtype=torch.int32, device=dev)
+        extra = {"warp_steps": warp_buffer(args[3].numel(), dev)} if args[2].leaf is None else {}
+        out = fn(*args, steps, **extra)
         out = out if isinstance(out, tuple) else (out,)
         digest[name] = sha((*out, steps))
         if extra:
             live = int(steps.to(torch.int64).sum())
             lanes[name] = live / (32 * int(extra["warp_steps"].to(torch.int64).sum()))
-        ms[name] = cuda_ms(lambda: fn(*args, **kw), reps)
+        ms[name] = cuda_ms(lambda: fn(*args), reps)
         if name.endswith("residuals"):
-            replay_in[name] = (args[3], args[4], out[1:], args[7], args[8])
+            replay_in[name] = (args[2].mat, args[2].tab, out[1:], args[5], args[6])
         del out
     # the replay on those residuals (its sums over rays are ordered by the
     # launch shape, so its values are compared within REPLAY_REL, not by digest)
@@ -1042,18 +1013,16 @@ def time_kernels(root: str) -> int:
     issue = intersect_issue_bound(o.shape[0] * tri16.shape[0])
     boxes = {}
     big_field = build_tri_field(BIG_FIELD_TRIS, 0, device=dev)
-    big = field_args(big_field, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES,
-                     None, chunk_seed(0, 0, FIELD_W))
-    for tag, (args, lf) in (("", (fa, leaf)), ("_200k", big)):
-        wf = (*args[:5], lf, *args[5:])
-        digest["sorted" + tag] = sha(render_rays_wavefront(*wf, save_residuals=True))
-        t = timed_sorted(args, lf, False, reps=3, check=not os.path.exists(os.path.join(root, "TIMING_ONLY")))
+    big, _ = field_args(big_field, FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES, None, chunk_seed(0, 0, FIELD_W))
+    for tag, args in (("", fa), ("_200k", big)):
+        digest["sorted" + tag] = sha(render_rays_wavefront(*args, save_residuals=True))
+        t = timed_sorted(args, False, reps=3, check=not os.path.exists(os.path.join(root, "TIMING_ONLY")))
         digest["integrate_step" + tag] = sha(t["out"])
         ms.update({"wavefront_camera" + tag: t["cam_ms"], "wavefront_bounce" + tag: t["bounce_ms"],
                    "wavefront_integrate" + tag: t["int_ms"], "integrate_step" + tag: t["step_ms"],
                    "integrate_step_residuals" + tag: t["step_res_ms"], "sort_and_gather" + tag: t["glue_ms"]})
         boxes["sorted" + tag] = {"bounce_live_steps": t["live"], "camera": t["b_cam"], "bounces": t["b_bounce"],
-                                 "lane_efficiency": [t.get("lanes_cam"), t.get("lanes_bounce")]}
+                                 "lane_efficiency": [t["lanes_cam"], t["lanes_bounce"]]}
     ms.update(end_to_end(dev, field, big_field))
     print(json.dumps({"root": os.path.abspath(root), "ms": ms, "digest": digest, "lane_efficiency": lanes,
                       "boxes": boxes, "ptxas": ptxas, "grads": grads, "replay_shape": shapes,
@@ -1131,7 +1100,7 @@ def xla_phase(dev, smi: str) -> dict:
     from spectral_tpu_torch.models.scenes import CORNELL, PRISM, build_scene, build_tri_field, scene_camera, with_bvh
     from spectral_tpu_torch.ops.cuda import build
     from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect
-    from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_auto, render_rays_reference
+    from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_frame, render_rays_reference
     from spectral_tpu_torch.ops.cuda.render_kernel import render_chunk as kernel_chunk
     from spectral_tpu_torch.ops.intersect import nearest_hit
     from spectral_tpu_torch.parallel import render_image_sharded, train_step
@@ -1278,12 +1247,12 @@ def xla_phase(dev, smi: str) -> dict:
     with torch.no_grad():
         d_mats = tabulate(dc.replace(cornell.materials, **{k: v.detach() for k, v in leaves.items()}))
         d_cam = camera_vector(cam256).to(dev)
-        d_tri, d_mat, d_tab, d_leaf = pack_scene_auto(dc.replace(cornell, materials=d_mats), d_cam)
-        if d_leaf is not None:
+        d_pack = pack_scene_frame(dc.replace(cornell, materials=d_mats), d_cam)
+        if d_pack.leaf is not None:
             raise SystemExit("render_chunk_diff: Cornell packed into leaves")
         dpx, dpy = wavefront.chunk_pixels(0, 0, 256, 256, dev)
         t0 = time.perf_counter()
-        d_plain = render_rays_reference(d_cam, 77, d_tri, d_mat, d_tab, dpx.float(), dpy.float(), d_spp, d_b,
+        d_plain = render_rays_reference(d_cam, 77, d_pack, dpx.float(), dpy.float(), d_spp, d_b,
                                         cam256.image_width).reshape(256, 256, 3)
         torch.cuda.synchronize()
         d_plain_s = time.perf_counter() - t0
@@ -2202,7 +2171,7 @@ def main() -> int:
         from spectral_tpu_torch.ops.cuda.intersect_kernel import intersect, pack_tris
         from spectral_tpu_torch.ops.cuda.render_kernel import (
             n_uniforms, order_leaves_near_to_far, pack_scene, pack_scene_leaves, render_chunk, render_rays,
-            render_rays_reference, render_rays_residuals,
+            render_rays_reference, render_rays_residuals, scene_pack,
         )
         from spectral_tpu_torch.ops.intersect import nearest_hit
         from spectral_tpu_torch.parallel import train_step_fused, trainable_params
@@ -2272,6 +2241,7 @@ def main() -> int:
             raise SystemExit(f"the leaf sweep of {name} has no 128-bit global loads")
     cornell = build_scene(CORNELL, dev)
     tri, mat, tab = pack_scene(cornell)
+    pack = scene_pack(tri, mat, tab)
     cam1 = camera_vector(scene_camera(CORNELL, 1, 1, dev))
     one = torch.zeros(1, device=dev)
     t0 = time.perf_counter()
@@ -2280,7 +2250,7 @@ def main() -> int:
     first = []
     for _ in range(2):
         t0 = time.perf_counter()
-        render_rays(cam1, 1, tri, mat, tab, one, one, 1, 1, 1)
+        render_rays(cam1, 1, pack, one, one, 1, 1, 1)
         torch.cuda.synchronize()
         first.append(1e3 * (time.perf_counter() - t0))
     log(f"render kernel library load {load_ms} ms; 1-pixel launch: first {first[0]} ms, second {first[1]} ms")
@@ -2295,18 +2265,18 @@ def main() -> int:
     res_err, res_mean, grad_err, grad_rel = 0.0, 0.0, 0.0, 0.0
     log(f"render megakernel, its residual form and the replay vs plain, {w}x{h}, {c_spp} spp, {c_bounces} bounces:")
     for sid, sname in ((CORNELL, "cornell"), (PRISM, "prism"), (TRIS, "tris")):
-        s_tri, s_mat, s_tab = pack_scene(build_scene(sid, dev))
+        s_pack = scene_pack(*pack_scene(build_scene(sid, dev)))
         cam = camera_vector(scene_camera(sid, w, h, dev))
         planes = rng.uniform(size=(c_spp, n_uniforms(c_bounces), w * h)).astype(np.float32)
         for mode, rand in (("planes", torch.from_numpy(planes).to(dev)), ("hash", None)):
             seed = chunk_seed(0, 0, w) + sid
-            args = (cam, seed, s_tri, s_mat, s_tab, px, py, c_spp, c_bounces, w, rand)
+            args = (cam, seed, s_pack, px, py, c_spp, c_bounces, w, rand)
             mx, mean, *_ = check_render(f"{sname}/{mode}", args)
             render_err, render_mean = max(render_err, mx), max(render_mean, mean)
             res, mx, mean, *_ = check_residuals(f"{sname}/{mode} residuals", args)
             res_err, res_mean = max(res_err, mx), max(res_mean, mean)
             g = torch.from_numpy(rng.normal(size=(w * h, 3)).astype(np.float32)).to(dev)
-            mx, rel, _ = check_replay(f"{sname}/{mode} replay", s_mat, s_tab, g, res, c_spp, c_bounces, sid == PRISM)
+            mx, rel, _ = check_replay(f"{sname}/{mode} replay", s_pack.mat, s_pack.tab, g, res, c_spp, c_bounces, sid == PRISM)
             grad_err, grad_rel = max(grad_err, mx), max(grad_rel, rel)
 
     # ---- 4. the kernels at the main path's shapes --------------------------
@@ -2318,7 +2288,7 @@ def main() -> int:
     fpx = (torch.arange(n_rays, device=dev) % width).float()
     fpy = (torch.arange(n_rays, device=dev) // width).float()
     seed = chunk_seed(0, 0, width)
-    args = (cam, seed, tri, mat, tab, fpx, fpy, spp, bounces, width, None)
+    args = (cam, seed, pack, fpx, fpy, spp, bounces, width, None)
     log(f"render megakernel vs plain, Cornell {width}x{height}, {spp} spp, {bounces} bounces, hash draws:")
     mx, mean, live, render_plain_ms, render_eff = check_render("cornell/full", args)
     render_ms = cuda_ms(lambda: render_rays(*args), 3)
@@ -2364,7 +2334,7 @@ def main() -> int:
     t_camv = camera_vector(t_cam)
     tpx = (torch.arange(t_rays, device=dev) % tw).float()
     tpy = (torch.arange(t_rays, device=dev) // tw).float()
-    t_args = (t_camv, TRAIN_SEED, tri, mat, tab, tpx, tpy, t_spp, t_b, tw, None)
+    t_args = (t_camv, TRAIN_SEED, pack, tpx, tpy, t_spp, t_b, tw, None)
     log(f"residual kernel vs plain, Cornell {tw}x{th}, {t_spp} spp, {t_b} bounces, hash draws:")
     t_res, mx, mean, res_plain_ms, t_live, res_eff = check_residuals("cornell/train", t_args)
     res_err, res_mean = max(res_err, mx), max(res_mean, mean)
@@ -2488,16 +2458,16 @@ def main() -> int:
         for mode, rand in (("planes", torch.from_numpy(planes).to(dev)), ("hash", None)):
             if sname == "field200k" and mode == "planes":
                 continue
-            args, leaf = field_args(scene, lw, lh, l_spp, l_bounces, rand, chunk_seed(0, 0, lw) + 7)
-            leaf_errs.append(check_leaves(f"{sname}/{mode}", args, leaf))
+            args, _ = field_args(scene, lw, lh, l_spp, l_bounces, rand, chunk_seed(0, 0, lw) + 7)
+            leaf_errs.append(check_leaves(f"{sname}/{mode}", args))
     c_tri, c_mat, c_tab, c_leaf = pack_scene_leaves(cornell, leaf_size=8)
     c_cam = camera_vector(scene_camera(CORNELL, lw, lh, dev))
     c_tri, c_leaf = order_leaves_near_to_far(c_tri, c_leaf, c_cam[0:3])
     c_px = (torch.arange(lw * lh, device=dev) % lw).float()
     c_py = (torch.arange(lw * lh, device=dev) // lw).float()
-    c_args = (c_cam, 99, c_tri, c_mat, c_tab, c_px, c_py, l_spp, l_bounces, lw, None)
-    dense = render_rays_residuals(c_cam, 99, tri, mat, tab, c_px, c_py, l_spp, l_bounces, lw, None)
-    on_cornell, _ = compare_residuals("leaf megakernel on CORNELL vs dense", render_rays_residuals(*c_args, leaf_pack=c_leaf), dense)
+    c_args = (c_cam, 99, scene_pack(c_tri, c_mat, c_tab, c_leaf), c_px, c_py, l_spp, l_bounces, lw, None)
+    dense = render_rays_residuals(c_cam, 99, pack, c_px, c_py, l_spp, l_bounces, lw, None)
+    on_cornell, _ = compare_residuals("leaf megakernel on CORNELL vs dense", render_rays_residuals(*c_args), dense)
     log(f"  cornell/hash, {c_leaf.shape[0]} leaves of 8: leaf megakernel vs dense megakernel max abs {on_cornell:.3g}")
     mega_err = max([e["mega_err"] for e in leaf_errs] + [on_cornell])
     mega_mean = max(e["mega_mean"] for e in leaf_errs)
@@ -2508,16 +2478,16 @@ def main() -> int:
     fw, fh, f_spp, f_b = FIELD_W, FIELD_H, FIELD_SPP, FIELD_BOUNCES
     f_rays, f_samples = fw * fh, fw * fh * FIELD_SPP
     f_args, f_leaf = field_args(field, fw, fh, f_spp, f_b, None, chunk_seed(0, 0, fw))
-    scene_bytes, ray_bytes, k_size = leaf_work(f_args, f_leaf)
+    scene_bytes, ray_bytes, k_size = leaf_work(f_args)
     log(f"leaf megakernel and sorted scheduler, 10k field ({field.num_tris} tris, {f_leaf.shape[0]} leaves of "
         f"{k_size}), {fw}x{fh}, {f_spp} spp, {f_b} bounces, hash draws:")
     box_names = ("visits", "group_visits", "super_visits")
     f_steps = torch.zeros(f_rays, dtype=torch.int32, device=dev)
     f_boxes = {k: torch.zeros_like(f_steps) for k in box_names}
-    f_res = render_rays_residuals(*f_args, f_steps, leaf_pack=f_leaf, **f_boxes)
+    f_res = render_rays_residuals(*f_args, f_steps, **f_boxes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    f_ref = render_rays_reference(*f_args, residuals=True, leaf_pack=f_leaf)
+    f_ref = render_rays_reference(*f_args, residuals=True)
     torch.cuda.synchronize()
     lm_plain_ms = 1e3 * (time.perf_counter() - t0)
     e, m = compare_residuals("leaf megakernel at the field shape", f_res, f_ref)
@@ -2525,8 +2495,8 @@ def main() -> int:
         raise SystemExit("leaf megakernel at the field shape: not bit-equal to its plain version")
     mega_err, mega_mean = max(mega_err, e), max(mega_mean, m)
     del f_ref
-    lm_ms = cuda_ms(lambda: render_rays(*f_args, leaf_pack=f_leaf), 3)
-    lmr_ms = cuda_ms(lambda: render_rays_residuals(*f_args, leaf_pack=f_leaf), 3)
+    lm_ms = cuda_ms(lambda: render_rays(*f_args), 3)
+    lmr_ms = cuda_ms(lambda: render_rays_residuals(*f_args), 3)
     f_live = int(f_steps.to(torch.int64).sum())
     f_box = {k: int(v.to(torch.int64).sum()) for k, v in f_boxes.items()}
     lm_sw, lm_flat, lm_tests = sweep_work(f_live, f_box, f_leaf, k_size)
@@ -2538,7 +2508,7 @@ def main() -> int:
     log(f"  leaf megakernel {lm_ms} ms, residual form {lmr_ms} ms (plain {lm_plain_ms} ms); {f_live} live ray-steps of "
         f"{f_samples * f_b} nominal, boxes entered {f_box}; bounds {lm_bound} ms ({lm_by}; flat sweep "
         f"{lm_flat_bound}), {lmr_bound} ms ({lmr_by}); slab tests a live ray-step {lm_tests}")
-    wf = sorted_report("10k field", f_args, f_leaf, plain=True)
+    wf = sorted_report("10k field", f_args, plain=True)
     if wf["live"] + f_samples != f_live or any(wf["b_cam"][k] + wf["b_bounce"][k] != f_box[k] for k in box_names):
         raise SystemExit("sorted scheduler: live ray-steps or boxes entered differ from the leaf megakernel's")
 
@@ -2585,7 +2555,7 @@ def main() -> int:
     if not big_same:
         raise SystemExit("the leaf megakernel's 200k frame differs from the sorted scheduler's")
     big_args, big_leaf = field_args(big, fw, fh, f_spp, f_b, None, chunk_seed(0, 0, fw))
-    big_wf = sorted_report(f"200k field ({big_leaf.shape[0]} leaves)", big_args, big_leaf, plain=False)
+    big_wf = sorted_report(f"200k field ({big_leaf.shape[0]} leaves)", big_args, plain=False)
     del big, big_args, big_leaf, big_rm, big_mega
     torch.cuda.empty_cache()
 

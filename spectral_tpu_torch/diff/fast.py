@@ -32,11 +32,12 @@ uniform planes (the tests hand over the JAX package's), and ``rand_seed``
 >= 0 makes such planes from a torch generator.
 
 Scenes above DENSE_CUTOFF triangles take their residual forward through
-the leaf pack, routed as the forward render is (fast.py:46-93): the sorted
-per-bounce scheduler (ops/cuda/wavefront_kernel.py) with more than one leaf
-and ``sched="sorted"``, the default, else the leaf megakernel. The
-residuals come back in original ray order either way, and the replay never
-traces a ray.
+the leaf pack, routed as the forward render is (fast.py:46-93, here
+ops/cuda/render_kernel.py::render_pack): the sorted per-bounce scheduler
+(ops/cuda/wavefront_kernel.py) with more than one leaf and
+``sched="sorted"``, the default, else the leaf megakernel. The residuals
+come back in original ray order either way, and the replay never traces a
+ray.
 
 Not here yet: ``diff/geometry.py`` and the warp estimators (ROADMAP A10).
 """
@@ -47,11 +48,10 @@ import dataclasses
 
 import torch
 
-from ..models.camera import camera_vector
+from ..models.camera import camera_vector, chunk_pixels
 from ..models.materials import tabulate
 from ..ops.cuda.grad_kernel import render_grads
-from ..ops.cuda.render_kernel import SCHEDULERS, n_uniforms, pack_scene_frame, render_chunk, render_rays_residuals
-from ..ops.cuda.wavefront_kernel import render_rays_wavefront
+from ..ops.cuda.render_kernel import n_uniforms, pack_scene_frame, render_chunk, render_pack
 from ..render import wavefront
 from ..utils.trace import span
 from .spectral_reparam import reparam_hero
@@ -99,24 +99,6 @@ def render_chunk_diff(materials, scene, cam, key_seed: int, x0: int, y0: int, wi
     return _ChunkDiff.apply(spec, *(getattr(materials, k) for k in DIFF_LEAVES))
 
 
-def _residual_forward(cam_vec, key_seed, pack, px, py, spp, bounces, image_width, rand, sched="sorted"):
-    """(xyz, hero, n_valid, power, matres) of the ScenePack ``pack``, routed
-    as the forward render: the sorted scheduler for a multi-leaf pack under
-    ``sched="sorted"``, else the residual megakernel (dense, or the leaf
-    form with a leaf pack)."""
-    if sched not in SCHEDULERS:
-        raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
-    tri, mat, tab, leaf, sweep, key_box = pack
-    if leaf is not None and leaf.shape[0] > 1 and sched == "sorted":
-        return render_rays_wavefront(
-            cam_vec, int(key_seed), tri, mat, tab, leaf, px, py, spp, bounces, image_width, rand,
-            save_residuals=True, sweep=sweep, key_box=key_box,
-        )
-    return render_rays_residuals(
-        cam_vec, int(key_seed), tri, mat, tab, px, py, spp, bounces, image_width, rand, leaf_pack=leaf, sweep=sweep
-    )
-
-
 def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=None, sched="sorted"):
     """xyz [N, 3] and the residuals (mat, tab, hero, n_valid, power, matres)
     the backward replays."""
@@ -124,8 +106,8 @@ def _rays_fwd_impl(materials, scene, cam, px, py, key_seed, spp, bounces, rand=N
     with span("train.pack"):
         pack = pack_scene_frame(dataclasses.replace(scene, materials=materials), cam_vec)
     with span("train.forward"):
-        xyz, hero, n_valid, power, matres = _residual_forward(
-            cam_vec, key_seed, pack, px, py, spp, bounces, cam.image_width, rand, sched,
+        xyz, hero, n_valid, power, matres = render_pack(
+            cam_vec, int(key_seed), pack, px, py, spp, bounces, cam.image_width, rand, residuals=True, sched=sched,
         )
     return xyz, (pack.mat, pack.tab, hero, n_valid, power, matres)
 
@@ -135,15 +117,11 @@ def _chunk_rays(scene, x0, y0, width, height, spp, bounces, rand_seed, rand):
     device, and its planes: ``rand``, else made from ``rand_seed`` >= 0,
     else None (hash draws)."""
     dev = scene.normal.device
-    ys, xs = torch.meshgrid(
-        torch.arange(y0, y0 + height, device=dev),
-        torch.arange(x0, x0 + width, device=dev),
-        indexing="ij",
-    )
+    px, py = chunk_pixels(x0, y0, width, height, dev)
     if rand is None and rand_seed >= 0:
         gen = torch.Generator(device=dev).manual_seed(rand_seed)
         rand = torch.rand((spp, n_uniforms(bounces), width * height), generator=gen, device=dev)
-    return xs.reshape(-1).to(torch.float32), ys.reshape(-1).to(torch.float32), rand
+    return px.to(torch.float32), py.to(torch.float32), rand
 
 
 def _fused_fwd_impl(

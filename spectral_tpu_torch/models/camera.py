@@ -129,6 +129,17 @@ def camera_vector(cam: Camera) -> torch.Tensor:
     ).to(torch.float32)
 
 
+def chunk_pixels(x0: int, y0: int, width: int, height: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major integer pixel coordinates (px, py) [height * width] of a
+    chunk."""
+    ys, xs = torch.meshgrid(
+        torch.arange(y0, y0 + height, device=device),
+        torch.arange(x0, x0 + width, device=device),
+        indexing="ij",
+    )
+    return xs.reshape(-1), ys.reshape(-1)
+
+
 def generate_rays(
     cam: Camera,
     px: torch.Tensor,

@@ -8,14 +8,15 @@ render_rays_pallas_residuals :2421, camera_vector :3240,
 render_chunk_pallas :3407). ``render_rays`` and ``render_rays_residuals``
 launch csrc/render_kernel.cu for CUDA tensors and run
 ``render_rays_reference``, the plain PyTorch version, for CPU tensors; there
-is no other fallback. Scenes of at most DENSE_CUTOFF triangles take the
-dense sweep; larger ones pass a leaf pack (``pack_scene_leaves``) and take
-the Morton-leaf sweep under its groups and super-groups of leaves, in this
-megakernel (``sched="mega"``) or in the sorted per-bounce scheduler of
-ops/cuda/wavefront_kernel.py; ``leaf_tables`` derives what the kernels
-read besides the pack. ``pack_scene_frame`` builds the leaf pack and its
-tables once per geometry (``LEAF_PACKS``) and each call orders them from
-the camera.
+is no other fallback. A scene reaches every kernel entry point as one
+``ScenePack``: ``pack_scene_frame`` makes it from a scene (a large scene's
+leaf pack and its tables built once per geometry, ``LEAF_PACKS``, and
+ordered from the camera each call), ``scene_pack`` from packs built by hand.
+Scenes of at most DENSE_CUTOFF triangles take the dense sweep; larger ones
+take the Morton-leaf sweep under its groups and super-groups of leaves
+(``leaf_tables``), in this megakernel (``sched="mega"``) or in the sorted
+per-bounce scheduler of ops/cuda/wavefront_kernel.py; ``render_pack``
+picks the kernel for a pack.
 
 The dense CUDA forms (forward and residual) can also report how many
 sweeps each warp ran (``warp_steps``): live ray-steps / (32 x warp sweeps)
@@ -52,7 +53,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ...models.camera import camera_vector
+from ...models.camera import camera_vector, chunk_pixels
 from ...models.materials import DIELECTRIC, EMISSIVE, METALLIC
 from ...utils.constants import (
     EPSILON,
@@ -308,8 +309,7 @@ class _MortonPack(NamedTuple):
     """The camera-independent part of a scene's leaf pack: its LeafTables in
     Morton order, padded to whole super-groups (the rows of a super-group
     are one block of each table), the super-groups' centres, the sort
-    keys' box (wavefront_kernel.py::_key_box) and the CIE rows of the
-    curve tables."""
+    keys' box (``_key_box``) and the CIE rows of the curve tables."""
 
     morton: LeafTables
     cent: torch.Tensor  # [NS, 3]
@@ -365,17 +365,27 @@ LEAF_PACKS = LeafPacks()
 
 
 def _morton_pack(scene, leaf_size: int) -> _MortonPack:
-    from .wavefront_kernel import _key_box
-
     tri, _, tab, leaf = pack_scene_leaves(scene, leaf_size)
     morton = leaf_tables(*_pad_super_groups(tri, leaf))
     cent = 0.5 * (morton.supers[:, 0:3] + morton.supers[:, 3:6])
     return _MortonPack(morton, cent, _key_box(morton.leaf), tab[:4])
 
 
+def _key_box(leaf_pack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, 1 / extent) of the union of the valid leaves' AABBs: the box
+    that normalizes the sorted scheduler's sort keys."""
+    valid = (leaf_pack[:, LEAF_VALID] != 0.0)[:, None]
+    lo = torch.where(valid, leaf_pack[:, 0:3], BIG).min(dim=0).values
+    hi = torch.where(valid, leaf_pack[:, 3:6], -BIG).max(dim=0).values
+    return lo, 1.0 / torch.clamp_min(hi - lo, 1e-9)
+
+
 class ScenePack(NamedTuple):
-    """What a render of a scene from one camera reads (``pack_scene_frame``);
-    ``sweep`` and ``key_box`` are None for a dense pack."""
+    """What every kernel entry point reads of a scene (``pack_scene_frame``
+    or ``scene_pack``): the tri pack, the material pack and the curve
+    tables, float32, contiguous and on one device; for a leaf pack also its
+    leaves, their LeafTables and the sort keys' box (``_key_box``), each
+    None for a dense pack."""
 
     tri: torch.Tensor
     mat: torch.Tensor
@@ -385,19 +395,54 @@ class ScenePack(NamedTuple):
     key_box: tuple[torch.Tensor, torch.Tensor] | None
 
 
+def scene_pack(tri, mat, tab, leaf=None) -> ScenePack:
+    """The ScenePack of packs made by hand: the dense pack of ``pack_scene``
+    without ``leaf``, else a leaf pack (``pack_scene_leaves``, maybe
+    reordered by ``order_leaves_near_to_far``) with its LeafTables and the
+    sort keys' box."""
+    if leaf is None:
+        if tri.ndim != 2 or tri.shape[1] != TRI_PACK_WIDTH:
+            raise ValueError(f"tri_pack must be [T, {TRI_PACK_WIDTH}], got {tuple(tri.shape)}")
+        if tri.shape[0] > DENSE_CUTOFF:
+            raise ValueError(
+                f"{tri.shape[0]} triangles: the dense sweep covers at most {DENSE_CUTOFF}; "
+                "pass the scene's leaf pack (pack_scene_leaves)"
+            )
+    else:
+        if leaf.ndim != 2 or leaf.shape[1] != LEAF_PACK_WIDTH or leaf.shape[0] < 1:
+            raise ValueError(f"leaf_pack must be [NL, {LEAF_PACK_WIDTH}], got {tuple(leaf.shape)}")
+        if tri.ndim != 2 or tri.shape[1] != LEAF_TRI_WIDTH or tri.shape[0] % leaf.shape[0] != 0:
+            raise ValueError(
+                f"tri_pack must be [NL * K, {LEAF_TRI_WIDTH}] for {leaf.shape[0]} leaves, got {tuple(tri.shape)}"
+            )
+    if mat.ndim != 2 or mat.shape[1] != MAT_PACK_WIDTH:
+        raise ValueError(f"mat_pack must be [M, {MAT_PACK_WIDTH}], got {tuple(mat.shape)}")
+    if tab.shape != (N_TABLES, N_CIE_SAMPLES):
+        raise ValueError(f"tables must be [{N_TABLES}, {N_CIE_SAMPLES}], got {tuple(tab.shape)}")
+    for name, x in (("mat_pack", mat), ("tables", tab), ("leaf_pack", leaf)):
+        if x is not None and x.device != tri.device:
+            raise ValueError(f"{name} is on {x.device}, tri_pack on {tri.device}")
+    mat, tab = (x.to(torch.float32).contiguous() for x in (mat, tab))
+    if leaf is None:
+        return ScenePack(tri.to(torch.float32).contiguous(), mat, tab, None, None, None)
+    sweep = leaf_tables(tri, leaf)
+    return ScenePack(sweep.tri, mat, tab, sweep.leaf, sweep, _key_box(sweep.leaf))
+
+
 def pack_scene_frame(scene, cam_vec=None, leaf_size: int = LEAF_SIZE) -> ScenePack:
-    """The scene's pack as ``pack_scene_auto`` makes it, with the leaf
-    tables and the sort keys' box of a leaf pack from a camera. Above
-    DENSE_CUTOFF triangles with ``cam_vec``, the Morton-order tables come
-    from LEAF_PACKS (built once per geometry) and each call packs the
-    materials and the background, orders the super-groups from the camera
-    and gathers the tables in that order: bit for bit the tables of
-    ``leaf_tables(*order_leaves_near_to_far(...))``, since a super-group is
-    a block of Morton-consecutive leaves of every table."""
+    """The scene's ScenePack, its first four fields as ``pack_scene_auto``
+    makes them. Above DENSE_CUTOFF triangles with ``cam_vec``, the
+    Morton-order tables come from LEAF_PACKS (built once per geometry) and
+    each call packs the materials and the background, orders the
+    super-groups from the camera and gathers the tables in that order: bit
+    for bit the tables of ``leaf_tables(*order_leaves_near_to_far(...))``,
+    since a super-group is a block of Morton-consecutive leaves of every
+    table. Without ``cam_vec`` the leaf pack is the Morton pack of
+    ``pack_scene_leaves`` and its tables are built here."""
     if scene.num_tris <= DENSE_CUTOFF:
         return ScenePack(*pack_scene(scene), None, None, None)
     if cam_vec is None:
-        return ScenePack(*pack_scene_leaves(scene, leaf_size), None, None)
+        return scene_pack(*pack_scene_leaves(scene, leaf_size))
     pack = LEAF_PACKS.get(scene, leaf_size)
     order = _super_group_order(pack.cent, cam_vec[0:3].to(pack.cent.device))
     sweep = LeafTables(*(_take_blocks(x, order) for x in pack.morton))
@@ -452,37 +497,18 @@ def comb_cell(hero: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor, t
     return lw, cw, xg - cw.to(torch.float32)
 
 
-def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack=None, visits=None,
-           warp_steps=None, group_visits=None, super_visits=None):
+def _check(cam_vec, pack, px, py, spp, bounces, rand, steps, visits=None, warp_steps=None, group_visits=None,
+           super_visits=None):
+    """Checks the rays, the draws and the outputs of a render of the
+    ScenePack ``pack`` (whose own shapes ``scene_pack`` checked)."""
     n = px.shape[0]
     dev = px.device
     if cam_vec.shape != (20,) or py.shape != (n,) or px.ndim != 1:
         raise ValueError(f"bad shapes cam_vec {tuple(cam_vec.shape)}, px {tuple(px.shape)}, py {tuple(py.shape)}")
-    if leaf_pack is None:
-        if tri_pack.ndim != 2 or tri_pack.shape[1] != TRI_PACK_WIDTH:
-            raise ValueError(f"tri_pack must be [T, {TRI_PACK_WIDTH}], got {tuple(tri_pack.shape)}")
-        if tri_pack.shape[0] > DENSE_CUTOFF:
-            raise ValueError(
-                f"{tri_pack.shape[0]} triangles: the dense sweep covers at most {DENSE_CUTOFF}; "
-                "pass the scene's leaf pack (pack_scene_leaves)"
-            )
-        if any(x is not None for x in (visits, group_visits, super_visits)):
-            raise ValueError("visits, group_visits and super_visits count boxes of the leaf sweep: they need a leaf pack")
-    else:
-        if warp_steps is not None:
-            raise ValueError("warp_steps counts the dense sweep's warps: it needs no leaf pack")
-        if leaf_pack.ndim != 2 or leaf_pack.shape[1] != LEAF_PACK_WIDTH or leaf_pack.shape[0] < 1:
-            raise ValueError(f"leaf_pack must be [NL, {LEAF_PACK_WIDTH}], got {tuple(leaf_pack.shape)}")
-        if (tri_pack.ndim != 2 or tri_pack.shape[1] != LEAF_TRI_WIDTH
-                or tri_pack.shape[0] % leaf_pack.shape[0] != 0):
-            raise ValueError(
-                f"tri_pack must be [NL * K, {LEAF_TRI_WIDTH}] for {leaf_pack.shape[0]} leaves, "
-                f"got {tuple(tri_pack.shape)}"
-            )
-    if mat_pack.ndim != 2 or mat_pack.shape[1] != MAT_PACK_WIDTH:
-        raise ValueError(f"mat_pack must be [M, {MAT_PACK_WIDTH}], got {tuple(mat_pack.shape)}")
-    if tables.shape != (N_TABLES, N_CIE_SAMPLES):
-        raise ValueError(f"tables must be [{N_TABLES}, {N_CIE_SAMPLES}], got {tuple(tables.shape)}")
+    if pack.leaf is None and any(x is not None for x in (visits, group_visits, super_visits)):
+        raise ValueError("visits, group_visits and super_visits count boxes of the leaf sweep: they need a leaf pack")
+    if pack.leaf is not None and warp_steps is not None:
+        raise ValueError("warp_steps counts the dense sweep's warps: it needs no leaf pack")
     if spp < 1 or bounces < 1:
         raise ValueError(f"spp {spp} and bounces {bounces} must be >= 1")
     if rand is not None and rand.shape != (spp, n_uniforms(bounces), n):
@@ -491,9 +517,8 @@ def _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, step
                           ("super_visits", super_visits, n), ("warp_steps", warp_steps, -(-n // WARP))):
         if x is not None and (x.shape != (size,) or x.dtype != torch.int32 or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 [{size}] tensor")
-    for name, x in (("cam_vec", cam_vec), ("tri_pack", tri_pack), ("mat_pack", mat_pack),
-                    ("tables", tables), ("py", py), ("rand", rand), ("steps", steps),
-                    ("leaf_pack", leaf_pack), ("visits", visits), ("group_visits", group_visits),
+    for name, x in (("cam_vec", cam_vec), ("tri_pack", pack.tri), ("mat_pack", pack.mat), ("tables", pack.tab),
+                    ("py", py), ("rand", rand), ("steps", steps), ("visits", visits), ("group_visits", group_visits),
                     ("super_visits", super_visits), ("warp_steps", warp_steps)):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, px on {dev}")
@@ -701,30 +726,28 @@ def path_xyz(power, n_valid, cell, frac, tables):
 
 
 def render_rays_reference(
-    cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-    image_width, rand=None, steps=None, residuals=False, leaf_pack=None, visits=None,
-    group_visits=None, super_visits=None, sweep=None,
+    cam_vec, seed, pack, px, py, spp, bounces, image_width, rand=None, steps=None, residuals=False, visits=None,
+    group_visits=None, super_visits=None,
 ):
-    """The plain PyTorch version of the megakernel: XYZ [N, 3] summed over
-    spp; with ``residuals``, the tuple (xyz, hero, n_valid, power, matres).
-    ``steps`` (int32 [N]), when given, receives each ray's count of live
-    ray-steps (bounces traced while its path was alive); with a
-    ``leaf_pack`` (the leaf sweep), ``visits``, ``group_visits`` and
-    ``super_visits`` (int32 [N]) receive the leaves, groups and
-    super-groups each pixel's rays entered; ``sweep``: the pack's
-    LeafTables (``leaf_tables``), built here when not given."""
+    """The plain PyTorch version of the megakernel on the ScenePack
+    ``pack``: XYZ [N, 3] summed over spp; with ``residuals``, the tuple
+    (xyz, hero, n_valid, power, matres). ``steps`` (int32 [N]), when given,
+    receives each ray's count of live ray-steps (bounces traced while its
+    path was alive); with a leaf pack (the leaf sweep), ``visits``,
+    ``group_visits`` and ``super_visits`` (int32 [N]) receive the leaves,
+    groups and super-groups each pixel's rays entered."""
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
     zero = torch.zeros(n, dtype=f32, device=dev)
-    tri_pack = tri_pack.to(f32)
+    tri_pack, mat_pack, tables = pack.tri, pack.mat, pack.tab
     px = px.to(f32)
     py = py.to(f32)
     n_draws = n_uniforms(bounces)
     keys = None if rand is not None else pixel_keys(seed, px, py, image_width)
     accx, accy, accz = zero, zero, zero
     live = torch.zeros(n, dtype=torch.int32, device=dev)
-    leaves = None if leaf_pack is None else _sweep_of(tri_pack, leaf_pack, sweep)
+    leaves = pack.sweep
     counts = (visits, group_visits, super_visits)
     for x in counts:
         if x is not None:
@@ -771,61 +794,52 @@ def render_rays_reference(
 
 
 def render_rays(
-    cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-    image_width, rand=None, steps=None, leaf_pack=None, visits=None, warp_steps=None,
-    group_visits=None, super_visits=None, sweep=None,
+    cam_vec, seed, pack, px, py, spp, bounces, image_width, rand=None, steps=None, visits=None, warp_steps=None,
+    group_visits=None, super_visits=None,
 ) -> torch.Tensor:
-    """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] f32.
+    """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] f32 in the
+    ScenePack ``pack``.
 
     ``seed``: the chunk seed of the hash draws (ignored with ``rand``);
     ``image_width``: the frame width, for the global pixel index of the
     hash; ``rand``: injected planes [spp, n_uniforms(bounces), N] f32;
     ``steps``: optional int32 [N] output of live ray-steps per ray;
-    ``leaf_pack``: the leaves of a ``pack_scene_leaves`` tri_pack, for the
-    leaf sweep; ``visits``, ``group_visits``, ``super_visits``: optional
-    int32 [N] outputs of the leaves, groups and super-groups entered;
-    ``sweep``: the leaf pack's LeafTables (``leaf_tables``, or
-    ``pack_scene_frame``'s), built here when not given; ``warp_steps``:
-    optional int32 [ceil(N / 32)] output of each warp's sweeps (dense form
-    on CUDA tensors only; 0 for a warp that did not run). CUDA tensors
-    launch the kernel (the leaf form with a leaf pack), CPU tensors run the
-    plain version."""
+    ``visits``, ``group_visits``, ``super_visits``: optional int32 [N]
+    outputs of the leaves, groups and super-groups entered (leaf pack);
+    ``warp_steps``: optional int32 [ceil(N / 32)] output of each warp's
+    sweeps (dense pack on CUDA tensors only; 0 for a warp that did not
+    run). CUDA tensors launch the kernel (the leaf form with a leaf pack),
+    CPU tensors run the plain version."""
     counts = (visits, group_visits, super_visits)
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps,
-           group_visits, super_visits)
+    _check(cam_vec, pack, px, py, spp, bounces, rand, steps, visits, warp_steps, group_visits, super_visits)
     if px.device.type == "cpu":
         return render_rays_reference(
-            cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-            image_width, rand, steps, leaf_pack=leaf_pack, visits=visits,
-            group_visits=group_visits, super_visits=super_visits, sweep=sweep,
+            cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, steps, visits=visits,
+            group_visits=group_visits, super_visits=super_visits,
         )
     xyz = torch.empty((px.shape[0], 3), dtype=torch.float32, device=px.device)
     _launch(
-        build.RENDER if leaf_pack is None else build.RENDER_LEAVES, cam_vec, seed, tri_pack,
-        mat_pack, tables, px, py, spp, bounces, image_width, rand, xyz, steps, leaf_pack, counts,
-        warp_steps, sweep=sweep,
+        build.RENDER if pack.leaf is None else build.RENDER_LEAVES, cam_vec, seed, pack, px, py, spp, bounces,
+        image_width, rand, xyz, steps, counts, warp_steps,
     )
     return xyz
 
 
-def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-            image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, residuals=(), sweep=None):
+def _launch(kernel, cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, xyz, steps, counts, warp_steps,
+            residuals=()):
     """Launch the megakernel (dense or leaf form, forward or residual) on
     CUDA tensors, writing xyz, steps, the leaf form's counts (visits,
     group_visits, super_visits) and the dense form's warp_steps (or None)
-    and the residual buffers; the leaf form reads ``sweep``, or the leaf
-    pack's tables built here."""
+    and the residual buffers; the leaf form reads the pack's LeafTables."""
     if px.device.type != "cuda":
         raise ValueError(f"unsupported device {px.device}")
     f32 = torch.float32
-    cam_vec, tri_pack, mat_pack, tables, px, py = (
-        x.to(f32).contiguous() for x in (cam_vec, tri_pack, mat_pack, tables, px, py)
-    )
+    cam_vec, px, py = (x.to(f32).contiguous() for x in (cam_vec, px, py))
     if rand is not None:
         rand = rand.to(f32).contiguous()
     counters = (_ptr(steps),)
-    if leaf_pack is None:
-        scene = (tri_pack.data_ptr(), tri_pack.shape[0])
+    if pack.leaf is None:
+        scene = (pack.tri.data_ptr(), pack.tri.shape[0])
         if warp_steps is not None:
             warp_steps.zero_()
         counters += (_ptr(warp_steps),)
@@ -834,14 +848,13 @@ def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, boun
             next_pixel = torch.zeros(1, dtype=torch.int32, device=px.device)
             counters += (next_pixel.data_ptr(),)
     else:
-        lt = _sweep_of(tri_pack, leaf_pack, sweep)
-        scene = leaf_launch_args(lt)
+        scene = leaf_launch_args(pack.sweep)
         counters += tuple(_ptr(x) for x in counts)
     kernel.launch(
         px.device,
         cam_vec.data_ptr(), seed & _M32, *scene,
-        mat_pack.data_ptr(), mat_pack.shape[0],
-        tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0], image_width,
+        pack.mat.data_ptr(), pack.mat.shape[0],
+        pack.tab.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0], image_width,
         spp, bounces,
         _ptr(rand),
         xyz.data_ptr(), *counters,
@@ -851,19 +864,6 @@ def _launch(kernel, cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, boun
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
-
-
-def _sweep_of(tri_pack, leaf_pack, sweep):
-    """``sweep``, the LeafTables of (tri_pack, leaf_pack), once its shapes
-    are checked against them; built when None."""
-    if sweep is None:
-        return leaf_tables(tri_pack, leaf_pack)
-    if sweep.tri.shape != tri_pack.shape or sweep.leaf.shape != leaf_pack.shape:
-        raise ValueError(
-            f"sweep holds tables of a {tuple(sweep.tri.shape)} / {tuple(sweep.leaf.shape)} pack, "
-            f"not of this {tuple(tri_pack.shape)} / {tuple(leaf_pack.shape)} one"
-        )
-    return sweep
 
 
 def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
@@ -882,9 +882,8 @@ def residual_buffers(spp: int, bounces: int, n: int, device, out=None):
 
 
 def render_rays_residuals(
-    cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-    image_width, rand=None, steps=None, out=None, leaf_pack=None, visits=None, warp_steps=None,
-    group_visits=None, super_visits=None, sweep=None,
+    cam_vec, seed, pack, px, py, spp, bounces, image_width, rand=None, steps=None, out=None, visits=None,
+    warp_steps=None, group_visits=None, super_visits=None,
 ):
     """``render_rays`` that also records the path residuals: returns
     (xyz [N, 3], hero [spp, N], n_valid [spp, N], power [spp, W, N],
@@ -894,25 +893,22 @@ def render_rays_residuals(
     residual form (its own launch count), CPU tensors run the plain
     version."""
     counts = (visits, group_visits, super_visits)
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, steps, leaf_pack, visits, warp_steps,
-           group_visits, super_visits)
+    _check(cam_vec, pack, px, py, spp, bounces, rand, steps, visits, warp_steps, group_visits, super_visits)
     n = px.shape[0]
     dev = px.device
     out = residual_buffers(spp, bounces, n, dev, out)
     if px.device.type == "cpu":
         xyz, *res = render_rays_reference(
-            cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-            image_width, rand, steps, residuals=True, leaf_pack=leaf_pack, visits=visits,
-            group_visits=group_visits, super_visits=super_visits, sweep=sweep,
+            cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, steps, residuals=True, visits=visits,
+            group_visits=group_visits, super_visits=super_visits,
         )
         for o, r in zip(out, res):
             o.copy_(r)
         return (xyz, *out)
     xyz = torch.empty((n, 3), dtype=torch.float32, device=dev)
     _launch(
-        build.RENDER_RESIDUALS if leaf_pack is None else build.RENDER_LEAVES_RESIDUALS,
-        cam_vec, seed, tri_pack, mat_pack, tables, px, py, spp, bounces,
-        image_width, rand, xyz, steps, leaf_pack, counts, warp_steps, out, sweep,
+        build.RENDER_RESIDUALS if pack.leaf is None else build.RENDER_LEAVES_RESIDUALS,
+        cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, xyz, steps, counts, warp_steps, out,
     )
     return (xyz, *out)
 
@@ -920,42 +916,42 @@ def render_rays_residuals(
 SCHEDULERS = ("sorted", "mega")
 
 
+def render_pack(cam_vec, seed, pack, px, py, spp, bounces, image_width, rand=None, residuals=False,
+                sched: str = "sorted"):
+    """XYZ [N, 3] of the rays of pixels (px, py) [N] f32 in the ScenePack
+    ``pack``, through the kernel for it: the dense megakernel for a dense
+    pack; for a leaf pack of more than one leaf the sorted per-bounce
+    scheduler (``sched="sorted"``, the default) or the leaf megakernel
+    (``sched="mega"``; the JAX package's BVH_SCHED), which also takes a
+    pack of one leaf. With ``residuals``, (xyz, hero, n_valid, power,
+    matres) as ``render_rays_residuals`` returns them."""
+    if sched not in SCHEDULERS:
+        raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
+    if pack.leaf is not None and pack.leaf.shape[0] > 1 and sched == "sorted":
+        from .wavefront_kernel import render_rays_wavefront
+
+        return render_rays_wavefront(cam_vec, seed, pack, px, py, spp, bounces, image_width, rand,
+                                     save_residuals=residuals)
+    render = render_rays_residuals if residuals else render_rays
+    return render(cam_vec, seed, pack, px, py, spp, bounces, image_width, rand)
+
+
 def render_chunk(
     scene, cam, seed: int, x0: int, y0: int, width: int, height: int,
     spp: int, bounces: int, rand: torch.Tensor | None = None, sched: str = "sorted",
 ) -> torch.Tensor:
     """Accumulated-XYZ chunk [height, width, 3] on the scene's device
-    (counterpart of render_chunk_pallas). At most DENSE_CUTOFF triangles:
-    one launch of the dense megakernel. Above: the leaf pack, its leaves
-    near-to-far from the camera (``pack_scene_frame``: the pack and its
-    leaf tables built once per geometry), then with more than one leaf
-    the sorted per-bounce scheduler (``sched="sorted"``, the default) or
-    the leaf megakernel (``sched="mega"``; the JAX package's BVH_SCHED).
-    Pixels are row-major; ``rand`` [spp, n_uniforms(bounces), height * width] injects
+    (counterpart of render_chunk_pallas): the scene's pack from the camera
+    (``pack_scene_frame``: a large scene's leaf pack and its tables built
+    once per geometry, its leaves near-to-far from the camera) through the
+    kernel ``render_pack`` picks for it and ``sched``. Pixels are
+    row-major; ``rand`` [spp, n_uniforms(bounces), height * width] injects
     the draws in that order, else they are hashed from ``seed``."""
-    if sched not in SCHEDULERS:
-        raise ValueError(f"sched must be one of {SCHEDULERS}, got {sched!r}")
     dev = scene.normal.device
     cam_vec = camera_vector(cam).to(dev)
     with span("render.pack"):
-        tri, mat, tab, leaf, sweep, key_box = pack_scene_frame(scene, cam_vec)
-    ys, xs = torch.meshgrid(
-        torch.arange(y0, y0 + height, device=dev),
-        torch.arange(x0, x0 + width, device=dev),
-        indexing="ij",
-    )
-    px, py = xs.reshape(-1).to(torch.float32), ys.reshape(-1).to(torch.float32)
+        pack = pack_scene_frame(scene, cam_vec)
+    px, py = (c.to(torch.float32) for c in chunk_pixels(x0, y0, width, height, dev))
     with span("render.launch"):
-        if leaf is not None and leaf.shape[0] > 1 and sched == "sorted":
-            from .wavefront_kernel import render_rays_wavefront
-
-            xyz = render_rays_wavefront(
-                cam_vec, seed, tri, mat, tab, leaf, px, py, spp, bounces, cam.image_width, rand, sweep=sweep,
-                key_box=key_box,
-            )
-        else:
-            xyz = render_rays(
-                cam_vec, seed, tri, mat, tab, px, py, spp, bounces, cam.image_width, rand, leaf_pack=leaf,
-                sweep=sweep,
-            )
+        xyz = render_pack(cam_vec, seed, pack, px, py, spp, bounces, cam.image_width, rand, sched=sched)
     return xyz.reshape(height, width, 3)

@@ -39,14 +39,12 @@ import torch
 
 from ...utils.trace import span
 from ..bvh import _expand_bits
-from ..intersect import BIG, LEAF_VALID
 from . import build
 from .render_kernel import (
     _M32,
     W,
     _check,
     _ptr,
-    _sweep_of,
     camera_rays,
     hash_uniforms,
     hero_curves,
@@ -83,14 +81,6 @@ def _sort_keys(st: torch.Tensor, lo: torch.Tensor, inv_ext: torch.Tensor) -> tor
     octant = (st[_ROW_DX] > 0.0).to(i32) * 4 + (st[_ROW_DY] > 0.0).to(i32) * 2 + (st[_ROW_DZ] > 0.0).to(i32)
     dead = (st[_ROW_ALIVE] == 0.0).to(i32)
     return (dead << 30) | (octant << 27) | morton
-
-
-def _key_box(leaf_pack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(lo, 1 / extent) of the union of the valid leaves' AABBs."""
-    valid = (leaf_pack[:, LEAF_VALID] != 0.0)[:, None]
-    lo = torch.where(valid, leaf_pack[:, 0:3], BIG).min(dim=0).values
-    hi = torch.where(valid, leaf_pack[:, 3:6], -BIG).max(dim=0).values
-    return lo, 1.0 / torch.clamp_min(hi - lo, 1e-9)
 
 
 def _ray_draws(seed, px, py, image_width, rand, sample, pixel, first, count):
@@ -130,15 +120,13 @@ def _counts(n_rays, dev, visits, group_visits, super_visits):
 
 
 def camera_bounce_reference(
-    cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-    image_width, rand, state, matres=None, steps=None, visits=None, group_visits=None,
-    super_visits=None, sweep=None,
+    cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, state, matres=None, steps=None, visits=None,
+    group_visits=None, super_visits=None,
 ):
-    """Plain version of the camera kernel: sample-ray r = s * N + p gets the
-    camera ray and hero of its draws, then bounce 0; writes ``state``
-    [17, spp * N], matres[:, 0, :], and steps, visits, group_visits,
-    super_visits [spp, N]. ``sweep``: the LeafTables of the leaf pack
-    (render_kernel.py::leaf_tables), built here when not given."""
+    """Plain version of the camera kernel on the leaf ScenePack ``pack``:
+    sample-ray r = s * N + p gets the camera ray and hero of its draws, then
+    bounce 0; writes ``state`` [17, spp * N], matres[:, 0, :], and steps,
+    visits, group_visits, super_visits [spp, N]."""
     n = px.shape[0]
     dev = px.device
     r = torch.arange(spp * n, device=dev)
@@ -149,8 +137,8 @@ def camera_bounce_reference(
     one = torch.ones(spp * n, dtype=torch.float32, device=dev)
     cnt = _counts(spp * n, dev, visits, group_visits, super_visits)
     ray, power, alive, n_valid, mres = trace_bounce(
-        ray, [one] * W, one, torch.full_like(one, float(W)), hero_curves(hero, tables),
-        u[3], u[4], u[5], tri_pack, mat_pack, _sweep_of(tri_pack, leaf_pack, sweep), cnt,
+        ray, [one] * W, one, torch.full_like(one, float(W)), hero_curves(hero, pack.tab),
+        u[3], u[4], u[5], pack.tri, pack.mat, pack.sweep, cnt,
     )
     _store(state, r, ray, power, alive, n_valid, hero)
     if matres is not None:
@@ -163,9 +151,8 @@ def camera_bounce_reference(
 
 
 def bounce_reference(
-    seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces, b,
-    image_width, rand, state, orig, matres=None, steps=None, visits=None, group_visits=None,
-    super_visits=None, sweep=None,
+    seed, pack, px, py, spp, bounces, b, image_width, rand, state, orig, matres=None, steps=None, visits=None,
+    group_visits=None, super_visits=None,
 ):
     """Plain version of the bounce kernel: bounce ``b`` of the state in
     sorted order, in place; ``orig`` [spp * N] int32 holds each column's
@@ -179,8 +166,8 @@ def bounce_reference(
     live = alive > 0.0
     cnt = _counts(o.shape[0], o.device, visits, group_visits, super_visits)
     ray, power, alive, n_valid, mres = trace_bounce(
-        ray, power, alive, n_valid, hero_curves(state[_ROW_HERO], tables),
-        u[0], u[1], u[2], tri_pack, mat_pack, _sweep_of(tri_pack, leaf_pack, sweep), cnt,
+        ray, power, alive, n_valid, hero_curves(state[_ROW_HERO], pack.tab),
+        u[0], u[1], u[2], pack.tri, pack.mat, pack.sweep, cnt,
     )
     _store(state, slice(None), ray, power, alive, n_valid)
     if matres is not None:
@@ -215,33 +202,29 @@ def integrate_reference(tables, state, orig, n, spp, pixel_xyz, hero=None, n_val
         power.view(spp, W, n)[o // n, :, o % n] = torch.stack(pw, dim=1)
 
 
-def _launch_camera(cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-                   image_width, rand, state, matres=None, steps=None, visits=None, group_visits=None,
-                   super_visits=None, sweep=None, next_col=None, warp_passes=None):
+def _launch_camera(cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, state, matres=None, steps=None,
+                   visits=None, group_visits=None, super_visits=None, next_col=None, warp_passes=None):
     """The camera kernel; ``next_col``: its column counter, one int32 that is
     0 (made here when not given); ``warp_passes``: two int64 that the launch
     adds its warp passes and lanes at work to, or None."""
-    lt = _sweep_of(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
     if next_col is None:
         next_col = torch.zeros(1, dtype=torch.int32, device=px.device)
     build.WAVEFRONT_CAMERA.launch(
-        px.device, cam_vec.data_ptr(), seed & _M32, *leaf_launch_args(lt),
-        mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
+        px.device, cam_vec.data_ptr(), seed & _M32, *leaf_launch_args(pack.sweep),
+        pack.mat.data_ptr(), pack.mat.shape[0], pack.tab.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
         image_width, spp, bounces,
         *(_ptr(x) for x in (rand, state, matres, steps, visits, group_visits, super_visits, next_col, warp_passes)),
     )
 
 
-def _launch_bounce(seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces, b,
-                   image_width, rand, state, orig, matres=None, steps=None, visits=None, group_visits=None,
-                   super_visits=None, sweep=None, next_col=None, warp_passes=None):
+def _launch_bounce(seed, pack, px, py, spp, bounces, b, image_width, rand, state, orig, matres=None, steps=None,
+                   visits=None, group_visits=None, super_visits=None, next_col=None, warp_passes=None):
     """The bounce kernel; ``next_col`` and ``warp_passes`` as _launch_camera's."""
-    lt = _sweep_of(tri_pack, leaf_pack, sweep)  # alive until the launch is queued
     if next_col is None:
         next_col = torch.zeros(1, dtype=torch.int32, device=px.device)
     build.WAVEFRONT_BOUNCE.launch(
-        px.device, seed & _M32, *leaf_launch_args(lt),
-        mat_pack.data_ptr(), mat_pack.shape[0], tables.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
+        px.device, seed & _M32, *leaf_launch_args(pack.sweep),
+        pack.mat.data_ptr(), pack.mat.shape[0], pack.tab.data_ptr(), px.data_ptr(), py.data_ptr(), px.shape[0],
         image_width, spp, bounces, _ptr(rand), b,
         *(_ptr(x) for x in (state, orig, matres, steps, visits, group_visits, super_visits, next_col, warp_passes)),
     )
@@ -259,9 +242,11 @@ _PLAIN = (camera_bounce_reference, bounce_reference, integrate_reference)
 _CUDA = (_launch_camera, _launch_bounce, _launch_integrate)
 
 
-def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-               image_width, rand, save_residuals, counters, out, warp_passes=None, sweep=None, key_box=None):
-    _check(cam_vec, tri_pack, mat_pack, tables, px, py, spp, bounces, rand, None, leaf_pack)
+def _wavefront(kernels, cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, save_residuals, counters, out,
+               warp_passes=None):
+    _check(cam_vec, pack, px, py, spp, bounces, rand, None)
+    if pack.leaf is None:
+        raise ValueError("the sorted scheduler traces a leaf pack: pass the scene's leaf pack")
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
@@ -276,18 +261,14 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
                 or not warp_passes.is_contiguous()):
             raise ValueError(f"warp_passes must be a contiguous int64 [bounces, 2] tensor on {dev}")
         warp_passes.zero_()
-    cam_vec, tri_pack, mat_pack, tables, leaf_pack, px, py = (
-        x.to(f32).contiguous() for x in (cam_vec, tri_pack, mat_pack, tables, leaf_pack, px, py)
-    )
+    cam_vec, px, py = (x.to(f32).contiguous() for x in (cam_vec, px, py))
     if rand is not None:
         rand = rand.to(f32).contiguous()
     camera, bounce, integrate = kernels
     nrays = spp * n
     res = residual_buffers(spp, bounces, n, dev, out) if save_residuals else None
     matres = res[3] if res is not None else None
-    scene = (tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces)
-    with span("sched.tables"):
-        sweep = _sweep_of(tri_pack, leaf_pack, sweep)
+    scene = (pack, px, py, spp, bounces)
 
     with span("sched.camera"):
         if kernels is _CUDA:
@@ -298,34 +279,33 @@ def _wavefront(kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px
         else:
             launch = [{}] * bounces
         state = torch.empty((STATE_ROWS, nrays), dtype=f32, device=dev)
-        camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, sweep=sweep, **launch[0])
+        camera(cam_vec, seed, *scene, image_width, rand, state, matres, *counters, **launch[0])
         orig = torch.arange(nrays, dtype=torch.int32, device=dev)
-        if bounces > 1:
-            lo, inv_ext = key_box if key_box is not None else _key_box(leaf_pack)
+    lo, inv_ext = pack.key_box
     for b in range(1, bounces):
         with span("sched.sort"):
             perm = torch.argsort(_sort_keys(state, lo, inv_ext), stable=True)
             state = state.index_select(1, perm)
             orig = orig.index_select(0, perm)
         with span("sched.bounce"):
-            bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, sweep=sweep, **launch[b])
+            bounce(seed, *scene, b, image_width, rand, state, orig, matres, *counters, **launch[b])
 
     with span("sched.integrate"):
         xyz = torch.empty((n, 3), dtype=f32, device=dev)
-        integrate(tables, state, orig, n, spp, xyz, *(res[:3] if res is not None else ()))
+        integrate(pack.tab, state, orig, n, spp, xyz, *(res[:3] if res is not None else ()))
     return (xyz, *res) if save_residuals else xyz
 
 
 def render_rays_wavefront(
-    cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-    image_width, rand=None, save_residuals=False, steps=None, visits=None, out=None,
-    group_visits=None, super_visits=None, warp_passes=None, sweep=None, key_box=None,
+    cam_vec, seed, pack, px, py, spp, bounces, image_width, rand=None, save_residuals=False, steps=None,
+    visits=None, out=None, group_visits=None, super_visits=None, warp_passes=None,
 ):
     """Accumulated XYZ [N, 3] for the rays of pixels (px, py) [N] through
-    the sorted per-bounce scheduler, over the leaf pack (tri_pack [NL * K,
-    18], leaf_pack [NL, 8]) of ops/cuda/render_kernel.py::pack_scene_leaves.
-    ``seed``, ``image_width`` and ``rand`` as in render_rays: the draws are
-    the megakernel's. With ``save_residuals``: (xyz, hero [spp, N], n_valid
+    the sorted per-bounce scheduler, over the leaf ScenePack ``pack``
+    (ops/cuda/render_kernel.py::pack_scene_frame or scene_pack): every
+    launch reads its LeafTables, the sort keys its box. ``seed``,
+    ``image_width`` and ``rand`` as in render_rays: the draws are the
+    megakernel's. With ``save_residuals``: (xyz, hero [spp, N], n_valid
     [spp, N], power [spp, W, N], matres int32 [spp, bounces, N]), all in
     original ray order, as render_rays_residuals returns them; ``out``:
     preallocated residual buffers (every element is written). ``steps``,
@@ -335,30 +315,25 @@ def render_rays_wavefront(
     tracing launches (row 0 the camera launch, b bounce b), CUDA tensors
     only: each launch's warp passes and the lanes at work in them
     (csrc/wavefront_kernel.cu::trace_columns); [:, 1] / (32 x [:, 0]) is the
-    share of lanes at work, the lane efficiency. Every launch reads the
-    leaf tables ``sweep`` (render_kernel.py::leaf_tables, or
-    ``pack_scene_frame``'s) and the sort keys take the box ``key_box``
-    (``_key_box`` of the leaf pack); each is built here when not given.
-    CUDA tensors launch the kernels (one camera launch, bounces - 1 bounce
-    launches, one integrate launch), CPU tensors run their plain versions."""
+    share of lanes at work, the lane efficiency. CUDA tensors launch the
+    kernels (one camera launch, bounces - 1 bounce launches, one integrate
+    launch), CPU tensors run their plain versions."""
     kernels = _PLAIN if px.device.type == "cpu" else _CUDA
     if px.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {px.device}")
     return _wavefront(
-        kernels, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-        image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out, warp_passes,
-        sweep, key_box,
+        kernels, cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, save_residuals,
+        (steps, visits, group_visits, super_visits), out, warp_passes,
     )
 
 
 def render_rays_wavefront_reference(
-    cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-    image_width, rand=None, save_residuals=False, steps=None, visits=None, out=None,
-    group_visits=None, super_visits=None,
+    cam_vec, seed, pack, px, py, spp, bounces, image_width, rand=None, save_residuals=False, steps=None,
+    visits=None, out=None, group_visits=None, super_visits=None,
 ):
     """``render_rays_wavefront`` through the plain versions of its kernels,
     on any device."""
     return _wavefront(
-        _PLAIN, cam_vec, seed, tri_pack, mat_pack, tables, leaf_pack, px, py, spp, bounces,
-        image_width, rand, save_residuals, (steps, visits, group_visits, super_visits), out,
+        _PLAIN, cam_vec, seed, pack, px, py, spp, bounces, image_width, rand, save_residuals,
+        (steps, visits, group_visits, super_visits), out,
     )

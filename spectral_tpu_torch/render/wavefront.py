@@ -49,7 +49,7 @@ import warnings
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.camera import Camera, generate_rays
+from ..models.camera import Camera, chunk_pixels, generate_rays
 from ..models.materials import DIELECTRIC, METALLIC
 from ..ops.color import to_uint8, xyz_to_srgb
 from ..ops.intersect import nearest_hit_scene
@@ -252,17 +252,6 @@ def render_tile_xyz(
         for i in range(m):  # the samples in order, as one at a time
             acc = acc + xyz[i * n:(i + 1) * n]
     return acc
-
-
-def chunk_pixels(x0: int, y0: int, width: int, height: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Row-major integer pixel coordinates (px, py) [height * width] of a
-    chunk."""
-    ys, xs = torch.meshgrid(
-        torch.arange(y0, y0 + height, device=device),
-        torch.arange(x0, x0 + width, device=device),
-        indexing="ij",
-    )
-    return xs.reshape(-1), ys.reshape(-1)
 
 
 def render_chunk(

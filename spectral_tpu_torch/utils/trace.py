@@ -31,11 +31,10 @@ The spans and where they are:
                       leaf pack looked up or built, then ordered from the
                       camera)
     render.launch     render_chunk's call into the kernels
-    sched.tables, sched.camera, sched.sort, sched.bounce, sched.integrate
-                      the sorted scheduler: the leaf tables (taken from
-                      the pack, or built), the camera
-                      launch (and the keys' box), each bounce's keys, argsort
-                      and gathers, the bounce launches, the integrate step
+    sched.camera, sched.sort, sched.bounce, sched.integrate
+                      the sorted scheduler: the camera launch, each
+                      bounce's keys, argsort and gathers, the bounce
+                      launches, the integrate step
     train.step        train_step_fused, a request
     train.pack, train.forward
                       the fused render's pack and residual forward

@@ -40,16 +40,15 @@ from spectral_tpu_torch.ops.cuda import wavefront_kernel
 from spectral_tpu_torch.ops.cuda.intersect_kernel import MAX_TRIS, intersect, pack_tris
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     LEAF_PACKS,
-    leaf_tables,
     n_uniforms,
     order_leaves_near_to_far,
     pack_scene,
-    pack_scene_auto,
     pack_scene_frame,
     pack_scene_leaves,
     render_rays,
     render_rays_reference,
     render_rays_residuals,
+    scene_pack,
 )
 from spectral_tpu_torch.ops.cuda.wavefront_kernel import (
     STATE_ROWS,
@@ -302,7 +301,7 @@ def test_render_kernel_equals_plain(cuda_device, scene_id, injected):
     w = h = 32
     spp, bounces = 4, 5
     scene = build_scene(scene_id, cuda_device)
-    tri, mat, tab = pack_scene(scene)
+    pack = scene_pack(*pack_scene(scene))
     cam = camera_vector(scene_camera(scene_id, w, h, cuda_device))
     px = (torch.arange(w * h, device=cuda_device) % w).float()
     py = (torch.arange(w * h, device=cuda_device) // w).float()
@@ -313,10 +312,10 @@ def test_render_kernel_equals_plain(cuda_device, scene_id, injected):
     steps = torch.zeros(w * h, dtype=torch.int32, device=cuda_device)
     ref_steps = torch.zeros_like(steps)
     before = build.RENDER.launches
-    got = render_rays(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand, steps)
+    got = render_rays(cam, 1984, pack, px, py, spp, bounces, w, rand, steps)
     torch.cuda.synchronize()
     assert build.RENDER.launches == before + 1
-    ref = render_rays_reference(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand, ref_steps)
+    ref = render_rays_reference(cam, 1984, pack, px, py, spp, bounces, w, rand, ref_steps)
     assert torch.equal(steps, ref_steps)
     err = (got - ref).abs()
     assert (err <= 2e-3 + 1e-5 * ref.abs()).all(), err.max().item()
@@ -345,7 +344,7 @@ _EDGES = {
 def test_dense_kernel_edges_bit_equal(cuda_device, case, residual):
     scene_id, w, h, spp, bounces, injected = _EDGES[case]
     n = w * h
-    tri, mat, tab = pack_scene(build_scene(scene_id, cuda_device))
+    pack = scene_pack(*pack_scene(build_scene(scene_id, cuda_device)))
     cam = camera_vector(scene_camera(scene_id, w, h, cuda_device))
     px = (torch.arange(n, device=cuda_device) % w).float()
     py = (torch.arange(n, device=cuda_device) // w).float()
@@ -353,7 +352,7 @@ def test_dense_kernel_edges_bit_equal(cuda_device, case, residual):
     if injected:
         planes = np.random.default_rng(scene_id + 40).uniform(size=(spp, n_uniforms(bounces), n))
         rand = torch.from_numpy(planes.astype(np.float32)).to(cuda_device)
-    args = (cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand)
+    args = (cam, 1984, pack, px, py, spp, bounces, w, rand)
     steps = [torch.full((n,), -1, dtype=torch.int32, device=cuda_device) for _ in range(2)]
     warps = torch.full((-(-n // 32),), -1, dtype=torch.int32, device=cuda_device)
     if residual:
@@ -391,7 +390,8 @@ def test_residual_and_replay_kernels_equal_plain(cuda_device, scene_id, injected
     w = h = 32
     spp, bounces = 4, 5
     n = w * h
-    tri, mat, tab = pack_scene(build_scene(scene_id, cuda_device))
+    pack = scene_pack(*pack_scene(build_scene(scene_id, cuda_device)))
+    mat, tab = pack.mat, pack.tab
     cam = camera_vector(scene_camera(scene_id, w, h, cuda_device))
     px = (torch.arange(n, device=cuda_device) % w).float()
     py = (torch.arange(n, device=cuda_device) // w).float()
@@ -406,12 +406,12 @@ def test_residual_and_replay_kernels_equal_plain(cuda_device, scene_id, injected
         torch.full((spp, bounces, n), 7, dtype=torch.int32, device=cuda_device),
     )
     before = build.RENDER_RESIDUALS.launches
-    xyz, *res = render_rays_residuals(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand, out=out)
+    xyz, *res = render_rays_residuals(cam, 1984, pack, px, py, spp, bounces, w, rand, out=out)
     torch.cuda.synchronize()
     assert build.RENDER_RESIDUALS.launches == before + 1
-    fwd = render_rays(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand)
+    fwd = render_rays(cam, 1984, pack, px, py, spp, bounces, w, rand)
     assert torch.equal(xyz, fwd)
-    ref_xyz, *ref = render_rays_reference(cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand, residuals=True)
+    ref_xyz, *ref = render_rays_reference(cam, 1984, pack, px, py, spp, bounces, w, rand, residuals=True)
     for k in (0, 1, 3):
         assert torch.equal(res[k], ref[k]), k
     torch.testing.assert_close(res[2], ref[2], rtol=2e-4, atol=1e-5)
@@ -545,14 +545,14 @@ def _garbage(spp, bounces, n, dev):
 def _field_case(dev, injected, w=64, h=32, spp=4, bounces=5):
     scene = build_tri_field(520, seed=3, glass=True, device=dev)
     cam = camera_vector(scene_camera(CORNELL, w, h, dev))
-    tri, mat, tab, leaf = pack_scene_auto(scene, cam)
+    pack = pack_scene_frame(scene, cam)
     px = (torch.arange(w * h, device=dev) % w).float()
     py = (torch.arange(w * h, device=dev) // w).float()
     rand = None
     if injected:
         planes = np.random.default_rng(11).uniform(size=(spp, n_uniforms(bounces), w * h))
         rand = torch.from_numpy(planes.astype(np.float32)).to(dev)
-    return (cam, 1984, tri, mat, tab, px, py, spp, bounces, w, rand), leaf
+    return cam, 1984, pack, px, py, spp, bounces, w, rand
 
 
 def _assert_residuals_equal(got, ref):
@@ -571,18 +571,17 @@ def _assert_residuals_equal(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("injected", (True, False), ids=("planes", "hash"))
 def test_leaf_megakernel_equals_plain(cuda_device, injected):
-    args, leaf = _field_case(cuda_device, injected)
-    n, spp, bounces = args[5].numel(), args[7], args[8]
+    args = _field_case(cuda_device, injected)
+    n, spp, bounces = args[3].numel(), args[5], args[6]
     counts = [torch.zeros(n, dtype=torch.int32, device=cuda_device) for _ in range(8)]
     before = (build.RENDER_LEAVES.launches, build.RENDER_LEAVES_RESIDUALS.launches)
-    fwd = render_rays(*args, counts[0], leaf_pack=leaf, visits=counts[1], group_visits=counts[2],
-                      super_visits=counts[3])
-    got = render_rays_residuals(*args, out=_garbage(spp, bounces, n, cuda_device), leaf_pack=leaf)
+    fwd = render_rays(*args, counts[0], visits=counts[1], group_visits=counts[2], super_visits=counts[3])
+    got = render_rays_residuals(*args, out=_garbage(spp, bounces, n, cuda_device))
     torch.cuda.synchronize()
     assert (build.RENDER_LEAVES.launches, build.RENDER_LEAVES_RESIDUALS.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got[0], fwd)
-    ref = render_rays_reference(*args, counts[4], residuals=True, leaf_pack=leaf, visits=counts[5],
-                                group_visits=counts[6], super_visits=counts[7])
+    ref = render_rays_reference(*args, counts[4], residuals=True, visits=counts[5], group_visits=counts[6],
+                                super_visits=counts[7])
     for k in range(4):  # live ray-steps, leaves, groups and super-groups entered
         assert torch.equal(counts[k], counts[4 + k]), k
     assert int(counts[3].sum()) > 0
@@ -593,10 +592,9 @@ def test_leaf_megakernel_equals_plain(cuda_device, injected):
 @pytest.mark.cuda
 @pytest.mark.parametrize("injected", (True, False), ids=("planes", "hash"))
 def test_sorted_scheduler_equals_plain_and_megakernel(cuda_device, injected):
-    args, leaf = _field_case(cuda_device, injected)
-    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    wf_args = _field_case(cuda_device, injected)
+    cam, seed, pack, px, py, spp, bounces, w, rand = wf_args
     n = px.numel()
-    wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
     counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(8)]
     kernels = (build.WAVEFRONT_CAMERA, build.WAVEFRONT_BOUNCE, build.WAVEFRONT_INTEGRATE)
     before = [k.launches for k in kernels]
@@ -619,7 +617,7 @@ def test_sorted_scheduler_equals_plain_and_megakernel(cuda_device, injected):
         assert torch.equal(a, b)
     _assert_residuals_equal(got, ref)
     # one source of path arithmetic: the same paths as the leaf megakernel
-    mega = render_rays_residuals(*args, leaf_pack=leaf)
+    mega = render_rays_residuals(*wf_args)
     for a, b in zip(got, mega):
         assert torch.equal(a, b)
 
@@ -630,12 +628,11 @@ def test_leaf_kernels_on_morton_pack_equal_plain(cuda_device):
     super-group are ragged (33 leaves of 16: groups of 8, 8, 8, 8 and 1):
     both leaf sweeps and their counts of boxes entered equal the plain
     versions'."""
-    args, _ = _field_case(cuda_device, injected=False)
-    tri, _, _, leaf = pack_scene_leaves(build_tri_field(520, seed=3, glass=True, device=cuda_device), leaf_size=16)
-    args = (*args[:2], tri, *args[3:])
-    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    args = _field_case(cuda_device, injected=False)
+    pack = scene_pack(*pack_scene_leaves(build_tri_field(520, seed=3, glass=True, device=cuda_device), leaf_size=16))
+    wf_args = (*args[:2], pack, *args[3:])
+    cam, seed, pack, px, py, spp, bounces, w, rand = wf_args
     n = px.numel()
-    wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
     counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(6)]
     got = render_rays_wavefront(*wf_args, save_residuals=True, visits=counts[0], group_visits=counts[1],
                                 super_visits=counts[2])
@@ -646,7 +643,7 @@ def test_leaf_kernels_on_morton_pack_equal_plain(cuda_device):
     for k in range(3):
         assert torch.equal(counts[k], counts[3 + k]), k
     mega = [torch.zeros(n, dtype=torch.int32, device=cuda_device) for _ in range(3)]
-    xyz = render_rays(*args, leaf_pack=leaf, visits=mega[0], group_visits=mega[1], super_visits=mega[2])
+    xyz = render_rays(*wf_args, visits=mega[0], group_visits=mega[1], super_visits=mega[2])
     assert torch.equal(xyz, got[0])
     for k in range(3):
         assert torch.equal(mega[k], counts[k].sum(0)), k
@@ -659,13 +656,12 @@ def _bounce_case(dev, case):
     (``one_live``), or rays from a corner of the field toward random points
     across it (``corner``), whose walks enter very different numbers of
     leaves. Returns (the bounce's arguments before ``b``, the state, orig)."""
-    args, leaf = _field_case(dev, injected=False, w=13, h=7, spp=3, bounces=3)
-    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    cam, seed, pack, px, py, spp, bounces, w, rand = _field_case(dev, injected=False, w=13, h=7, spp=3, bounces=3)
     nrays = spp * px.numel()
     state = torch.empty((STATE_ROWS, nrays), device=dev)
-    wavefront_kernel.camera_bounce_reference(cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand, state)
+    wavefront_kernel.camera_bounce_reference(cam, seed, pack, px, py, spp, bounces, w, rand, state)
+    lo, inv_ext = pack.key_box
     if case == "corner":
-        lo, inv_ext = wavefront_kernel._key_box(leaf)
         ext = 1.0 / inv_ext
         g = torch.Generator(device="cpu").manual_seed(5)
         origin = lo + ext * (0.01 + 0.02 * torch.rand((nrays, 3), generator=g)).to(dev)
@@ -679,10 +675,9 @@ def _bounce_case(dev, case):
     elif case == "one_live":
         state[7] = 0.0
         state[7, nrays // 2] = 1.0
-    lo, inv_ext = wavefront_kernel._key_box(leaf)
     perm = torch.argsort(wavefront_kernel._sort_keys(state, lo, inv_ext), stable=True)
     orig = torch.arange(nrays, dtype=torch.int32, device=dev)[perm].contiguous()
-    return (seed, tri, mat, tab, leaf, px, py, spp, bounces), state[:, perm].contiguous(), orig
+    return (seed, pack, px, py, spp, bounces), state[:, perm].contiguous(), orig
 
 
 @pytest.mark.cuda
@@ -692,7 +687,7 @@ def test_persistent_bounce_kernel_equals_plain(cuda_device, case):
     the state, the material residuals (into garbage) and the four counters
     (live ray-steps, leaves, groups, super-groups entered) bit-equal."""
     scene, state, orig = _bounce_case(cuda_device, case)
-    spp, bounces, n = scene[7], scene[8], scene[5].numel()
+    spp, bounces, n = scene[4], scene[5], scene[2].numel()
     outs = []
     for bounce in (wavefront_kernel._launch_bounce, wavefront_kernel.bounce_reference):
         st = state.clone()
@@ -719,25 +714,22 @@ def test_warp_passes_cover_the_live_ray_steps(cuda_device):
     a leaf): a pass is at most 32 lanes at work, each lane at work on one
     step's end or on one unit, and a unit takes at least one lane, so
     live ray-steps + units <= lanes at work <= 32 x passes."""
-    args, leaf = _field_case(cuda_device, injected=False)
-    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
+    cam, seed, pack, px, py, spp, bounces, w, rand = _field_case(cuda_device, injected=False)
     n, nrays = px.numel(), spp * px.numel()
-    scene = (tri, mat, tab, leaf, px, py, spp, bounces)
-    sweep = leaf_tables(tri, leaf)
-    batches = -(-sweep.supers.shape[0] // 8)
+    scene = (pack, px, py, spp, bounces)
+    batches = -(-pack.sweep.supers.shape[0] // 8)
     state = torch.empty((STATE_ROWS, nrays), device=cuda_device)
     orig = torch.arange(nrays, dtype=torch.int32, device=cuda_device)
-    lo, inv_ext = wavefront_kernel._key_box(leaf)
+    lo, inv_ext = pack.key_box
     for b in range(bounces):
         counts = [torch.zeros((spp, n), dtype=torch.int32, device=cuda_device) for _ in range(4)]
         passes = torch.zeros(2, dtype=torch.int64, device=cuda_device)
         if b == 0:
-            wavefront_kernel._launch_camera(cam, seed, *scene, w, rand, state, None, *counts, sweep=sweep,
-                                            warp_passes=passes)
+            wavefront_kernel._launch_camera(cam, seed, *scene, w, rand, state, None, *counts, warp_passes=passes)
         else:
             perm = torch.argsort(wavefront_kernel._sort_keys(state, lo, inv_ext), stable=True)
             state, orig = state.index_select(1, perm), orig.index_select(0, perm)
-            wavefront_kernel._launch_bounce(seed, *scene, b, w, rand, state, orig, None, *counts, sweep=sweep,
+            wavefront_kernel._launch_bounce(seed, *scene, b, w, rand, state, orig, None, *counts,
                                             warp_passes=passes)
         steps, leaves, groups, supers = (int(c.to(torch.int64).sum()) for c in counts)
         units = steps * batches + supers + groups + leaves
@@ -750,9 +742,8 @@ def test_warp_passes_cover_the_live_ray_steps(cuda_device):
 def test_warp_passes_output_changes_nothing_else(cuda_device):
     """A frame with the warp_passes output and one without give the same
     image, residuals and counters."""
-    args, leaf = _field_case(cuda_device, injected=True)
-    cam, seed, tri, mat, tab, px, py, spp, bounces, w, rand = args
-    wf_args = (cam, seed, tri, mat, tab, leaf, px, py, spp, bounces, w, rand)
+    wf_args = _field_case(cuda_device, injected=True)
+    cam, seed, pack, px, py, spp, bounces, w, rand = wf_args
     n = px.numel()
     outs = []
     passes = torch.full((bounces, 2), 7, dtype=torch.int64, device=cuda_device)
@@ -773,8 +764,9 @@ def test_field_frames_reuse_the_leaf_pack(cuda_device):
     """Two frames of the 10k field at two poses through RenderManager: the
     first builds the scene's leaf pack, the second is served from it and
     its XYZ is bit-equal to a cold render of its pose; render_rays_wavefront
-    gives the same image, residuals and counters with and without the
-    served tables (sweep=, key_box=)."""
+    gives the same image, residuals and counters with the served pack and
+    with the pack ``scene_pack`` builds by hand from its tri and leaf
+    packs."""
     scene = build_tri_field(10008, seed=0, device=cuda_device)
     params = RenderParams(xres=128, aspect_ratio=2.0, nsamples=4, bounce_limit=6, device="cuda", show=False)
     cams = [make_camera(128, 64, vfov=40.0, lookfrom=eye, lookat=(278.0, 278.0, 0.0), vup=(0.0, 1.0, 0.0),
@@ -799,12 +791,11 @@ def test_field_frames_reuse_the_leaf_pack(cuda_device):
     pack = pack_scene_frame(scene, cv)
     px = (torch.arange(w * h, device=cuda_device) % w).float()
     py = (torch.arange(w * h, device=cuda_device) // w).float()
-    wf_args = (cv, 1984, pack.tri, pack.mat, pack.tab, pack.leaf, px, py, spp, bounces, 128, None)
     outs = []
-    for given in ({"sweep": pack.sweep, "key_box": pack.key_box}, {}):
+    for given in (pack, scene_pack(*pack[:4])):
         counts = [torch.zeros((spp, w * h), dtype=torch.int32, device=cuda_device) for _ in range(4)]
-        got = render_rays_wavefront(*wf_args, save_residuals=True, steps=counts[0], visits=counts[1],
-                                    group_visits=counts[2], super_visits=counts[3], **given)
+        got = render_rays_wavefront(cv, 1984, given, px, py, spp, bounces, 128, save_residuals=True, steps=counts[0],
+                                    visits=counts[1], group_visits=counts[2], super_visits=counts[3])
         outs.append((*got, *counts))
     torch.cuda.synchronize()
     for a, b in zip(*outs):
@@ -821,9 +812,9 @@ def test_leaf_megakernel_on_cornell_equals_dense(cuda_device):
     py = (torch.arange(w * h, device=cuda_device) // w).float()
     tri, mat, tab, leaf = pack_scene_leaves(scene, leaf_size=8)
     tri, leaf = order_leaves_near_to_far(tri, leaf, cam[0:3])
-    args = (cam, 1984, tri, mat, tab, px, py, spp, bounces, w, None)
-    dense = render_rays_residuals(cam, 1984, *pack_scene(scene), px, py, spp, bounces, w, None)
-    _assert_residuals_equal(render_rays_residuals(*args, leaf_pack=leaf), dense)
+    leaves = render_rays_residuals(cam, 1984, scene_pack(tri, mat, tab, leaf), px, py, spp, bounces, w, None)
+    dense = render_rays_residuals(cam, 1984, scene_pack(*pack_scene(scene)), px, py, spp, bounces, w, None)
+    _assert_residuals_equal(leaves, dense)
 
 
 @pytest.mark.cuda

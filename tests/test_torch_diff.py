@@ -57,6 +57,7 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     pack_scene,
     render_rays,
     render_rays_residuals,
+    scene_pack,
 )
 from spectral_tpu_torch.parallel import Mesh, apply_params, train_step_fused, trainable_params
 from spectral_tpu_torch.utils.constants import LAMBDA_MAX, LAMBDA_MIN
@@ -206,8 +207,9 @@ def test_fd_sellmeier_frozen_target_slab():
     m0 = scene.materials
     b0, c0 = m0.sellmeier_b[glass], m0.sellmeier_c[glass]
 
-    tri, mat, tab = pack_scene(scene)
-    _, hero, nv, pw, mres = render_rays_residuals(cam, 5, tri, mat, tab, px, py, 1, bounces, 32, rand)
+    pack = scene_pack(*pack_scene(scene))
+    mat, tab = pack.mat, pack.tab
+    _, hero, nv, pw, mres = render_rays_residuals(cam, 5, pack, px, py, 1, bounces, 32, rand)
     grads = render_grads(mat, tab, torch.ones((1024, 3)), hero, nv, pw, mres, 1, bounces, want_bg_grads=True, want_sellmeier=True)
     d_b, d_c = _sellmeier_grads_from_replay(m0, glass, hero, grads[3], grads[4])
     assert torch.isfinite(d_b).all() and torch.isfinite(d_c).all()
@@ -218,8 +220,9 @@ def test_fd_sellmeier_frozen_target_slab():
         rand2[0, 2] = (hr - LAMBDA_MIN) / (LAMBDA_MAX - LAMBDA_MIN)
         sb, sc = m0.sellmeier_b.clone(), m0.sellmeier_c.clone()
         sb[glass], sc[glass] = bg, cg
-        t2, m2, tb2 = pack_scene(dataclasses.replace(scene, materials=dataclasses.replace(m0, sellmeier_b=sb, sellmeier_c=sc)))
-        out = render_rays(cam, 5, t2, m2, tb2, px, py, 1, bounces, 32, rand2)
+        pack2 = scene_pack(*pack_scene(
+            dataclasses.replace(scene, materials=dataclasses.replace(m0, sellmeier_b=sb, sellmeier_c=sc))))
+        out = render_rays(cam, 5, pack2, px, py, 1, bounces, 32, rand2)
         return float(torch.sum(out * wgt[:, None]))
 
     eps = 1e-5
@@ -358,7 +361,7 @@ def test_residual_matres_overwrites_garbage():
     """(g): paths end early (misses, lights, absorbing metal); every later
     bounce must read 0 even when the buffer held garbage."""
     scene = build_scene(CORNELL, "cpu")
-    tri, mat, tab = pack_scene(scene)
+    pack = scene_pack(*pack_scene(scene))
     cam = camera_vector(scene_camera(CORNELL, 8, 8, "cpu"))
     px = torch.arange(8, dtype=torch.float32).repeat(8)
     py = torch.arange(8, dtype=torch.float32).repeat_interleave(8)
@@ -367,12 +370,12 @@ def test_residual_matres_overwrites_garbage():
         torch.full((spp, 64), 7.0), torch.full((spp, 64), 7.0),
         torch.full((spp, 7, 64), 7.0), torch.full((spp, bounces, 64), 7, dtype=torch.int32),
     )
-    xyz, *res = render_rays_residuals(cam, 3, tri, mat, tab, px, py, spp, bounces, 8, out=out)
-    ref_xyz, *ref = render_rays_residuals(cam, 3, tri, mat, tab, px, py, spp, bounces, 8)
+    xyz, *res = render_rays_residuals(cam, 3, pack, px, py, spp, bounces, 8, out=out)
+    ref_xyz, *ref = render_rays_residuals(cam, 3, pack, px, py, spp, bounces, 8)
     assert all(r is o for r, o in zip(res, out))
     for a, b in zip(res, ref):
         assert torch.equal(a, b)
-    assert torch.equal(xyz, ref_xyz) and torch.equal(xyz, render_rays(cam, 3, tri, mat, tab, px, py, spp, bounces, 8))
+    assert torch.equal(xyz, ref_xyz) and torch.equal(xyz, render_rays(cam, 3, pack, px, py, spp, bounces, 8))
     m = res[3]
     ended = torch.zeros_like(m[:, 0], dtype=torch.bool)
     n_after = 0
@@ -384,4 +387,4 @@ def test_residual_matres_overwrites_garbage():
         ended |= lights
     assert n_after > 0
     with pytest.raises(ValueError):
-        render_rays_residuals(cam, 3, tri, mat, tab, px, py, spp, bounces, 8, out=out[:3] + (out[3].float(),))
+        render_rays_residuals(cam, 3, pack, px, py, spp, bounces, 8, out=out[:3] + (out[3].float(),))

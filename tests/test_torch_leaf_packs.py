@@ -2,10 +2,11 @@
 (ops/cuda/render_kernel.py::pack_scene_frame, LEAF_PACKS), on the CPU; no
 JAX call and no kernel.
 
-- from every camera the pack and its leaf tables equal the per-frame build,
-  ``leaf_tables(*order_leaves_near_to_far(...))``, tensor for tensor, on
-  fields whose last super-group is ragged, at leaf sizes 8 and 16, and the
-  sort keys' box equals ``_key_box`` of the ordered leaves;
+- from every camera the pack, its leaf tables and the sort keys' box equal
+  the per-frame build, ``scene_pack`` of ``order_leaves_near_to_far``'s
+  output, tensor for tensor, on fields whose last super-group is ragged, at
+  leaf sizes 8 and 16; without a camera the pack carries the tables and
+  box of ``pack_scene_leaves``'s Morton pack;
 - an in-place edit of any tensor the pack reads (a ``_version`` bump), a
   new tensor in its place or another leaf size makes a new build;
 - new materials or a new sky (``dataclasses.replace``) keep the geometry's
@@ -16,8 +17,10 @@ JAX call and no kernel.
 - the counts in ``trace.summary()`` and the run log: a build, then a reuse
   a frame or training step; none for a dense scene;
 - renders served from an entry are bit-equal to cold ones (sorted and mega
-  schedulers), and ``render_rays_wavefront`` gives the same with and
-  without ``sweep=``.
+  schedulers), and the served pack and the hand-built one render the same
+  through ``render_rays_wavefront``;
+- ``render_pack`` takes each kind of pack (dense, leaf megakernel, sorted
+  scheduler) to its entry point, forward and residual.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ import torch
 
 from spectral_tpu_torch import main as port_main
 from spectral_tpu_torch.config import RenderParams
-from spectral_tpu_torch.models.camera import camera_vector, make_camera
+from spectral_tpu_torch.models.camera import camera_vector, chunk_pixels, make_camera
 from spectral_tpu_torch.models.scenes import CORNELL, build_scene, build_tri_field, scene_camera
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     GEOMETRY,
     LEAF_PACKS,
+    _key_box,
     leaf_tables,
     order_leaves_near_to_far,
     pack_materials,
@@ -43,8 +47,11 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     pack_scene_frame,
     pack_scene_leaves,
     render_chunk,
+    render_pack,
+    render_rays_residuals,
+    scene_pack,
 )
-from spectral_tpu_torch.ops.cuda.wavefront_kernel import _key_box, render_rays_wavefront
+from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
 from spectral_tpu_torch.parallel import train_step_fused, trainable_params
 from spectral_tpu_torch.runtime.render_manager import RenderManager
 from spectral_tpu_torch.utils import trace
@@ -64,10 +71,16 @@ def _cam_vec(eye, w=8, h=4):
 
 
 def _per_frame(scene, cam_vec, leaf_size):
-    """The pack and tables as each frame built them before the cache."""
+    """The pack as each frame built it before the cache, by hand."""
     tri, mat, tab, leaf = pack_scene_leaves(scene, leaf_size)
     tri, leaf = order_leaves_near_to_far(tri, leaf, cam_vec[0:3])
-    return tri, mat, tab, leaf, leaf_tables(tri, leaf)
+    return scene_pack(tri, mat, tab, leaf)
+
+
+def _assert_packs_equal(got, want):
+    for a, b in zip((got.tri, got.mat, got.tab, got.leaf, *got.sweep, *got.key_box),
+                    (want.tri, want.mat, want.tab, want.leaf, *want.sweep, *want.key_box)):
+        assert a.dtype == b.dtype and a.is_contiguous() and torch.equal(a, b)
 
 
 def _counts():
@@ -82,15 +95,10 @@ def test_served_pack_equals_per_frame_build(field, leaf_size):
     for k, eye in enumerate(EYES):
         _, cv = _cam_vec(eye)
         got = pack_scene_frame(scene, cv, leaf_size)
-        tri, mat, tab, leaf, sweep = _per_frame(scene, cv, leaf_size)
+        want = _per_frame(scene, cv, leaf_size)
         assert pack_scene_leaves(scene, leaf_size)[3].shape[0] % 64  # the last super-group is ragged
-        for a, b in zip((got.tri, got.mat, got.tab, got.leaf), (tri, mat, tab, leaf)):
-            assert torch.equal(a, b)
-        for a, b in zip(got.sweep, sweep):
-            assert a.dtype == b.dtype and a.is_contiguous() and torch.equal(a, b)
-        for a, b in zip(got.key_box, _key_box(leaf)):
-            assert torch.equal(a, b)
-        assert all(torch.equal(a, b) for a, b in zip(pack_scene_auto(scene, cv, leaf_size), (tri, mat, tab, leaf)))
+        _assert_packs_equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(pack_scene_auto(scene, cv, leaf_size), want[:4]))
         assert _counts() == (b0 + 1, r0 + 2 * k + 1)
 
 
@@ -99,7 +107,11 @@ def test_pack_without_a_camera_is_the_morton_pack():
     b0, r0 = _counts()
     for a, b in zip(pack_scene_auto(scene), pack_scene_leaves(scene)):
         assert torch.equal(a, b)
-    assert pack_scene_frame(scene).sweep is None and _counts() == (b0, r0)
+    got = pack_scene_frame(scene)
+    tri, _, _, leaf = pack_scene_leaves(scene)
+    assert all(torch.equal(a, b) for a, b in zip(got.sweep, leaf_tables(tri, leaf)))
+    assert all(torch.equal(a, b) for a, b in zip(got.key_box, _key_box(leaf)))
+    assert _counts() == (b0, r0)
 
 
 @pytest.mark.parametrize("name", GEOMETRY)
@@ -113,8 +125,7 @@ def test_in_place_edit_rebuilds(name):
         x.view(-1)[5] += 1  # moves a triangle's row, or its box
     got = pack_scene_frame(scene, cv)
     assert _counts() == (b0 + 1, r0)
-    tri, _, _, leaf, sweep = _per_frame(scene, cv, 16)
-    assert torch.equal(got.tri, tri) and torch.equal(got.leaf, leaf) and torch.equal(got.sweep.supers, sweep.supers)
+    _assert_packs_equal(got, _per_frame(scene, cv, 16))
     pack_scene_frame(scene, cv)
     assert _counts() == (b0 + 1, r0 + 1)
 
@@ -177,8 +188,8 @@ def test_dropping_the_geometry_drops_its_entry_and_inference_tensors_keep_none()
         got = pack_scene_frame(scene, cv)
         pack_scene_frame(scene, cv)
     assert _counts() == (b0 + 2, r0) and LEAF_PACKS.entries.get(scene.normal) is None
-    tri, _, _, leaf, _ = _per_frame(scene, cv, 16)
-    assert torch.equal(got.tri, tri) and torch.equal(got.leaf, leaf)
+    want = _per_frame(scene, cv, 16)
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.leaf, want.leaf)
 
 
 def test_counts_in_the_summary_and_the_run_log():
@@ -215,18 +226,43 @@ def test_served_render_equals_cold_render(sched):
 
 
 def test_wavefront_with_and_without_sweep():
+    """The pack LEAF_PACKS serves (its sweep from the entry) and the one
+    ``scene_pack`` builds by hand from ``order_leaves_near_to_far``'s output
+    are equal, tensor for tensor, and render bit-equal xyz, residuals and
+    counts of boxes entered through the sorted scheduler."""
     scene = build_tri_field(520, 3, device="cpu")
-    cam, cv = _cam_vec(EYES[1])
-    pack = pack_scene_frame(scene, cv)
-    px = (torch.arange(32) % 8).float()
-    py = (torch.arange(32) // 8).float()
-    args = (cv, 5, pack.tri, pack.mat, pack.tab, pack.leaf, px, py, 2, 3, 8)
+    _, cv = _cam_vec(EYES[1])
+    served, built = pack_scene_frame(scene, cv), _per_frame(scene, cv, 16)
+    _assert_packs_equal(served, built)
+    px, py = (c.float() for c in chunk_pixels(0, 0, 8, 4, "cpu"))
     counts = [[torch.zeros((2, 32), dtype=torch.int32) for _ in range(3)] for _ in range(2)]
-    given = render_rays_wavefront(*args, save_residuals=True, sweep=pack.sweep, key_box=pack.key_box,
-                                  visits=counts[0][0], group_visits=counts[0][1], super_visits=counts[0][2])
-    built = render_rays_wavefront(*args, save_residuals=True,
-                                  visits=counts[1][0], group_visits=counts[1][1], super_visits=counts[1][2])
-    assert all(torch.equal(a, b) for a, b in zip(given, built))
+    outs = [render_rays_wavefront(cv, 5, pack, px, py, 2, 3, 8, save_residuals=True, visits=c[0], group_visits=c[1],
+                                  super_visits=c[2]) for pack, c in zip((served, built), counts)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
     assert all(torch.equal(a, b) for a, b in zip(*counts)) and counts[0][0].sum() > 0
-    with pytest.raises(ValueError, match="sweep holds tables"):
-        render_rays_wavefront(*args, sweep=pack_scene_frame(scene, cv, 8).sweep)
+
+
+@pytest.mark.parametrize("kind", ("dense", "mega", "sorted"))
+def test_render_pack_routes_each_pack(kind):
+    """``render_pack`` takes a dense pack to the dense megakernel, a leaf
+    pack under ``sched="mega"`` to the leaf megakernel and under "sorted" to
+    the sorted scheduler (the only route with ``sched.*`` spans), forward
+    and residual, each bit-equal to its entry point's output."""
+    scene = build_scene(CORNELL, "cpu") if kind == "dense" else build_tri_field(520, 3, device="cpu")
+    _, cv = _cam_vec(EYES[0])
+    pack = pack_scene_frame(scene, cv)
+    px, py = (c.float() for c in chunk_pixels(0, 0, 8, 4, "cpu"))
+    args = (cv, 5, pack, px, py, 2, 3, 8)
+    want = render_rays_wavefront(*args, save_residuals=True) if kind == "sorted" else render_rays_residuals(*args)
+    sched = "mega" if kind == "mega" else "sorted"
+    trace.reset()
+    with trace.recording():
+        got = render_pack(*args, residuals=True, sched=sched)
+    assert ("sched.camera" in trace.summary()["spans"]) == (kind == "sorted")
+    assert len(got) == 5 and all(torch.equal(a, b) for a, b in zip(got, want)) and want[0].abs().sum() > 0
+    assert torch.equal(render_pack(*args, sched=sched), want[0])
+    with pytest.raises(ValueError, match="sched must be one of"):
+        render_pack(*args, sched="wavefront")
+    if kind == "dense":
+        with pytest.raises(ValueError, match="leaf pack"):
+            render_rays_wavefront(*args)

@@ -55,6 +55,7 @@ from spectral_tpu_torch.ops.cuda.render_kernel import (
     render_chunk,
     render_rays,
     render_rays_reference,
+    scene_pack,
 )
 from spectral_tpu_torch.runtime.render_manager import RenderManager, chunk_seed
 
@@ -120,9 +121,9 @@ def test_prism_path_follows_xla_sin_and_cos(monkeypatch):
     x = refs.prism_flip_inputs()
     ref = refs.outputs("prism_flip", x)["xyz"]
     w, h, bounces = int(x["w"]), int(x["h"]), int(x["bounces"])
-    tri, mat, tab = pack_scene(build_scene(PRISM, "cpu"))
+    pack = scene_pack(*pack_scene(build_scene(PRISM, "cpu")))
     args = (
-        camera_vector(scene_camera(PRISM, w, h, "cpu")), 0, tri, mat, tab, torch.from_numpy(x["px"][:1].copy()),
+        camera_vector(scene_camera(PRISM, w, h, "cpu")), 0, pack, torch.from_numpy(x["px"][:1].copy()),
         torch.from_numpy(x["py"][:1].copy()), 1, bounces, w, torch.from_numpy(x["rand"][:, :, :1].copy()),
     )
     assert ref[0, 2] > 1.0  # the JAX path reaches the light
@@ -160,9 +161,9 @@ def test_render_rays_checks_inputs():
     cam = camera_vector(scene_camera(CORNELL, 4, 4, "cpu"))
     px = torch.zeros(16)
     with pytest.raises(ValueError):
-        render_rays(cam, 0, tri, mat, tab, px, px, 2, 3, 4, rand=torch.zeros(2, 10, 16))
+        render_rays(cam, 0, scene_pack(tri, mat, tab), px, px, 2, 3, 4, rand=torch.zeros(2, 10, 16))
     with pytest.raises(ValueError, match="pack_scene_leaves"):
-        render_rays(cam, 0, torch.zeros(129, 17), mat, tab, px, px, 2, 3, 4)
+        scene_pack(torch.zeros(129, 17), mat, tab)
 
 
 def _hash32_py(x: int) -> int:
@@ -216,12 +217,12 @@ def test_production_render_is_deterministic_and_finite(scene_id):
 
 def test_live_steps_count():
     scene = build_scene(CORNELL, "cpu")
-    tri, mat, tab = pack_scene(scene)
+    pack = scene_pack(*pack_scene(scene))
     cam = camera_vector(scene_camera(CORNELL, 8, 8, "cpu"))
     px = (torch.arange(64) % 8).float()
     py = (torch.arange(64) // 8).float()
     steps = torch.zeros(64, dtype=torch.int32)
-    render_rays_reference(cam, 5, tri, mat, tab, px, py, 3, 4, 8, steps=steps)
+    render_rays_reference(cam, 5, pack, px, py, 3, 4, 8, steps=steps)
     assert (steps >= 3).all() and (steps <= 12).all()  # >= 1 bounce per sample
 
 
@@ -230,17 +231,19 @@ def test_warp_steps_needs_the_dense_cuda_kernel():
     such output, so CPU tensors, a leaf pack or a wrong shape raise."""
     scene = build_scene(TRIS, "cpu")
     tri, mat, tab = pack_scene(scene)
+    pack = scene_pack(tri, mat, tab)
     w, h = 40, 25
     cam = camera_vector(scene_camera(TRIS, w, h, "cpu"))
     px = (torch.arange(w * h) % w).float()
     py = (torch.arange(w * h) // w).float()
     warps = torch.zeros(32, dtype=torch.int32)  # ceil(1000 / 32)
     with pytest.raises(ValueError, match="CUDA"):
-        render_rays(cam, 5, tri, mat, tab, px, py, 2, 4, w, warp_steps=warps)
+        render_rays(cam, 5, pack, px, py, 2, 4, w, warp_steps=warps)
     with pytest.raises(ValueError, match=r"int32 \[32\]"):
-        render_rays(cam, 5, tri, mat, tab, px, py, 2, 4, w, warp_steps=torch.zeros(31, dtype=torch.int32))
+        render_rays(cam, 5, pack, px, py, 2, 4, w, warp_steps=torch.zeros(31, dtype=torch.int32))
     with pytest.raises(ValueError, match="leaf pack"):
-        render_rays(cam, 5, torch.zeros(8, 18), mat, tab, px, py, 2, 4, w, leaf_pack=torch.zeros(1, 8), warp_steps=warps)
+        render_rays(cam, 5, scene_pack(torch.zeros(8, 18), mat, tab, torch.zeros(1, 8)), px, py, 2, 4, w,
+                    warp_steps=warps)
 
 
 def test_render_manager_chunks_and_resume(tmp_path):

@@ -136,8 +136,8 @@ def test_sorted_scheduler_spans():
         render_chunk(scene, cam, 7, 0, 0, 8, 4, 1, bounces)
     s = trace.summary()["spans"]
     counts = {k: v["count"] for k, v in s.items()}
-    assert counts == {"render.pack": 1, "render.launch": 1, "sched.tables": 1, "sched.camera": 1,
-                      "sched.sort": bounces - 1, "sched.bounce": bounces - 1, "sched.integrate": 1}
+    assert counts == {"render.pack": 1, "render.launch": 1, "sched.camera": 1, "sched.sort": bounces - 1,
+                      "sched.bounce": bounces - 1, "sched.integrate": 1}
     assert all(p == "render.launch" for n, p in _tree(trace.records()).items() if n.startswith("sched."))
 
 

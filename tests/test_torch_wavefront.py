@@ -44,7 +44,7 @@ from spectral_tpu_torch.ops.cuda import wavefront_kernel
 from spectral_tpu_torch.ops.cuda.render_kernel import (
     W,
     hero_curves,
-    pack_scene_auto,
+    pack_scene_frame,
     path_xyz,
     render_rays_residuals,
 )
@@ -77,13 +77,13 @@ def jax_field_inputs():
 
 
 def port_field(jscene, planes, px, py):
-    """The port's scene (the JAX arrays), the arguments of its renders and
-    its leaf pack."""
+    """The port's scene (the JAX arrays) and the arguments of its renders,
+    its leaf pack from the camera among them."""
     scene = scene_from_numpy(refs.jax_arrays(jscene), "cpu")
     cam = camera_vector(scene_camera(CORNELL, W_PX, H_PX, "cpu"))
-    tri, mat, tab, leaf = pack_scene_auto(scene, cam)
-    args = (cam, 0, tri, mat, tab, torch.from_numpy(px), torch.from_numpy(py), SPP, BOUNCES, W_PX, torch.from_numpy(planes))
-    return scene, args, leaf
+    pack = pack_scene_frame(scene, cam)
+    args = (cam, 0, pack, torch.from_numpy(px), torch.from_numpy(py), SPP, BOUNCES, W_PX, torch.from_numpy(planes))
+    return scene, args
 
 
 @pytest.fixture(scope="module")
@@ -93,10 +93,10 @@ def field():
     jscene, x = jax_field_inputs()
     ref = refs.outputs("field_mega", x)
     jm = [ref[k] for k in ("xyz", "hero", "n_valid", "power", "matres")]
-    scene, args, leaf = port_field(jscene, x["planes"], x["px"], x["py"])
-    mega = render_rays_residuals(*args, leaf_pack=leaf)
-    sorted_ = render_rays_wavefront(*args[:5], leaf, *args[5:], save_residuals=True)
-    return dict(jscene=jscene, args=args, leaf=leaf, mega=mega, sorted=sorted_, jax_mega=jm, departed=departed(mega, jm))
+    scene, args = port_field(jscene, x["planes"], x["px"], x["py"])
+    mega = render_rays_residuals(*args)
+    sorted_ = render_rays_wavefront(*args, save_residuals=True)
+    return dict(jscene=jscene, args=args, mega=mega, sorted=sorted_, jax_mega=jm, departed=departed(mega, jm))
 
 
 def departed(port, jax_res) -> np.ndarray:
@@ -142,15 +142,15 @@ def test_departed_rays_follow_the_jax_exact_sweep(field):
     dense sweep on the port's ray gives the port's residual."""
     departed_rays = field["departed"]
     assert departed_rays.sum() > 0  # the reference-side divergence this file documents
-    cam, seed, tri, mat, tab, px, py, spp, bounces, width, rand = field["args"]
+    cam, seed, pack, px, py, spp, bounces, width, rand = field["args"]
     port_m, jax_m = field["mega"][4].numpy(), field["jax_mega"][4]
     # the port's rays before each bounce, in original order (no sort)
     state = torch.empty((STATE_ROWS, spp * N))
-    camera_bounce_reference(cam, seed, tri, mat, tab, field["leaf"], px, py, spp, bounces, width, rand, state)
+    camera_bounce_reference(cam, seed, pack, px, py, spp, bounces, width, rand, state)
     rays = {1: state[0:6].clone()}
     orig = torch.arange(spp * N, dtype=torch.int32)
     for b in range(1, bounces - 1):
-        bounce_reference(seed, tri, mat, tab, field["leaf"], px, py, spp, bounces, b, width, rand, state, orig)
+        bounce_reference(seed, pack, px, py, spp, bounces, b, width, rand, state, orig)
         rays[b + 1] = state[0:6].clone()
     checked = 0
     mat_index = np.asarray(field["jscene"].mat_index)
@@ -193,9 +193,8 @@ def test_integrate_step_equals_per_ray_then_ascending_sum(field):
         integrate_reference(tables, state, orig, n, spp, pixel_xyz, *res)
         finals.append((tables, state.clone(), orig.clone(), n, spp, pixel_xyz.clone()))
 
-    args, leaf = field["args"], field["leaf"]
     xyz = wavefront_kernel._wavefront(
-        (camera_bounce_reference, bounce_reference, integrate), *args[:5], leaf, *args[5:], False,
+        (camera_bounce_reference, bounce_reference, integrate), *field["args"], False,
         (None, None, None, None), None,
     )
     (tables, state, orig, n, spp, pixel_xyz), = finals

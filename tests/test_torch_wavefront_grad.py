@@ -62,8 +62,8 @@ def field():
     ref = refs.outputs("field_sorted", x)
     jax_sorted = [ref[k] for k in ("xyz", "hero", "n_valid", "power", "matres")]
     planes = x["planes"]
-    scene, args, leaf = port_field(jscene, planes, x["px"], x["py"])
-    port = render_rays_wavefront(*args[:5], leaf, *args[5:], save_residuals=True)
+    scene, args = port_field(jscene, planes, x["px"], x["py"])
+    port = render_rays_wavefront(*args, save_residuals=True)
     departed_rays = departed(port, jax_sorted)
     cot = np.random.default_rng(99).normal(size=(N, 3)).astype(np.float32)
     cot[departed_rays.any(axis=0)] = 0.0

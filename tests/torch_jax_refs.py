@@ -385,14 +385,13 @@ def field_cotangent(x: dict, jax_sorted: dict) -> np.ndarray:
 
     from spectral_tpu_torch.models.camera import camera_vector
     from spectral_tpu_torch.models.scenes import CORNELL, scene_camera, scene_from_numpy
-    from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_auto
+    from spectral_tpu_torch.ops.cuda.render_kernel import pack_scene_frame
     from spectral_tpu_torch.ops.cuda.wavefront_kernel import render_rays_wavefront
 
     scene = scene_from_numpy(x["scene"], "cpu")
     cam = camera_vector(scene_camera(CORNELL, FIELD_W, FIELD_H, "cpu"))
-    tri, mat, tab, leaf = pack_scene_auto(scene, cam)
     port = render_rays_wavefront(
-        cam, 0, tri, mat, tab, leaf, torch.from_numpy(x["px"]), torch.from_numpy(x["py"]), FIELD_SPP,
+        cam, 0, pack_scene_frame(scene, cam), torch.from_numpy(x["px"]), torch.from_numpy(x["py"]), FIELD_SPP,
         FIELD_BOUNCES, FIELD_W, torch.from_numpy(x["planes"]), save_residuals=True,
     )
     mres = (port[4].numpy() != jax_sorted["matres"]).any(axis=1)
